@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from the sources in the checkout, checks it against
-its plain PyTorch version at the shapes of the main path, runs the SGNN
-policy on the card against the same model on the CPU, drives the batched
-HLG rollout (256 envs x 30 steps) and shows that the rollout went through
-the kernel, then steps GPU and CPU environments in lockstep. One line per
-phase; the line before the last is one JSON object describing each kernel,
-the last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
-result, when there is no CUDA device or any phase fails.
+Builds the three CUDA kernels from the sources in the checkout (one nvcc
+per source, all at once) and checks each against its plain PyTorch version
+at the shapes of the main paths: the node-owner segment mean of the
+rollout (at the rollout's and the trainer's graph sizes), and the per-edge
+segment mean and its backward of the PPO update.
+Runs the SGNN policy on the card against the same model on the CPU, and
+one PPO loss backward on the card against the CPU. Drives the batched HLG
+rollout (256 envs x 30 steps), steps GPU and CPU environments in lockstep,
+then runs one full HLG PPO train_iteration (256 envs x 50 steps, 4 epochs
+of minibatch 256) and a 16-env greedy evaluation, showing from the launch
+counts that each path went through its kernels. One line per phase; the
+line before the last is one JSON object describing each kernel, the last
+line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
+when there is no CUDA device or any check fails. About 5 minutes on an
+H100.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -26,6 +34,16 @@ B, E_BENCH, D = 256, 2304, 16
 TOL_KERNEL = 1e-5        # kernel vs plain segment mean (f32, other sum order)
 TOL_MODEL = 1e-4         # policy logits / value, card vs CPU
 STATE_RTOL, STATE_ATOL = 1e-5, 1e-4   # float state fields, as the CPU tests
+# parameter gradients of one PPO loss, card vs CPU: max |difference| of a
+# tensor <= TOL_GRAD_REL x its largest CPU gradient + TOL_GRAD_ABS. The
+# relative part: f32 sums over up to B x E = 768,000 terms in other orders
+# (cuBLAS vs the CPU's BLAS, the kernels vs index_add_), whose rounding
+# grows like sqrt(n) x 6e-8, about 1e-4; 1e-3 leaves a margin. The
+# absolute part: the attention key bias's gradient is zero in exact
+# arithmetic (softmax ignores a shift common to all logits), so on both
+# devices it is rounding noise far below 1e-6
+TOL_GRAD_REL, TOL_GRAD_ABS = 1e-3, 1e-6
+ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 50, 16
 
 
 def phase(name, t0, **kv):
@@ -49,6 +67,17 @@ def cuda_time_ms(fn, reps=20):
     return float(np.median(times))
 
 
+def random_graph(rng, batch, n_edges, n_nodes):
+    """Bipartite endpoints (the domain's block x intersection graphs) as
+    int32, and a mask with 30% of the edges masked out."""
+    half = n_nodes // 2
+    edges = np.concatenate([rng.integers(0, half, (batch, n_edges, 1)),
+                            rng.integers(half, n_nodes, (batch, n_edges, 1))],
+                           -1)
+    return (torch.as_tensor(edges, dtype=torch.int32),
+            torch.as_tensor(rng.random((batch, n_edges)) >= 0.3))
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -58,10 +87,11 @@ def main():
     from urban_tpu_torch import bench
     from urban_tpu_torch.models.policy import MASK_PAD
     from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
     from urban_tpu_torch.torchenv import state as tstate
     from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
                                                   broadcast_state,
-                                                  make_batch_fns)
+                                                  make_batch_fns, rollout)
     bench.set_precision_flags()
     dev = torch.device('cuda', 0)
 
@@ -76,10 +106,12 @@ def main():
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    segment_ops.load_library()
+    libs = segment_ops.build_libraries()
+    for name in libs:
+        segment_ops.load_library(name)
+    root = os.path.dirname(os.path.abspath(__file__))
     phase('build', t0, nvcc_seconds=segment_ops.build_seconds,
-          library=os.path.relpath(segment_ops.build_library(),
-                                  os.path.dirname(os.path.abspath(__file__))))
+          libraries={k: os.path.relpath(v, root) for k, v in libs.items()})
 
     # ---- 3. kernel vs plain at the path's shape -------------------------
     t0 = time.time()
@@ -88,13 +120,8 @@ def main():
     batch_obs_cpu, batch_step_cpu = make_batch_fns(spec)
     obs0 = batch_obs_cpu(broadcast_state(init_cpu, 1))
     rng = np.random.default_rng(0)
-    half = N // 2
-    rand_edges = np.concatenate([rng.integers(0, half, (B, E_BENCH, 1)),
-                                 rng.integers(half, N, (B, E_BENCH, 1))], -1)
     graphs = {
-        'random_bipartite_30pct_masked': (
-            torch.as_tensor(rand_edges, dtype=torch.int32),
-            torch.as_tensor(rng.random((B, E_BENCH)) >= 0.3)),
+        'random_bipartite_30pct_masked': random_graph(rng, B, E_BENCH, N),
         'hlg_initial_observation': (
             obs0[2].expand(B, -1, -1).contiguous(),
             obs0[5].expand(B, -1).contiguous()),
@@ -125,6 +152,95 @@ def main():
               max_abs_err=err, bitwise_repeat=True, kernel_ms=k_ms,
               plain_ms=p_ms)
 
+    # ---- 3b. all three kernels at the trainer's shape --------------------
+    # E=3000 is not a multiple of the node-owner kernel's 256-edge chunk at
+    # D=16, so this also reaches its partial last chunk, which collect and
+    # eval run and the rollout's E=2304 does not
+    t0 = time.time()
+    cfg_t, spec_t, init_t = bench.setup('hlg', {}, 'cpu')  # trainer caps
+    N_T, E_T = spec_t.num_features, spec_t.NE
+    obs_t = make_batch_fns(spec_t)[0](broadcast_state(init_t, 1))
+    edges_r, mask_r = random_graph(rng, B, E_T, N_T)
+    grad_graphs = {
+        'random_bipartite_30pct_masked': (edges_r, mask_r),
+        'hlg_initial_observation': (obs_t[2].expand(B, -1, -1).contiguous(),
+                                    obs_t[5].expand(B, -1).contiguous()),
+    }
+    grad_err = {'segment_mean_edge': 0.0, 'segment_mean_backward': 0.0}
+    grad_ms, grad_plain_ms = {}, {}
+    for gname, (edges, mask) in grad_graphs.items():
+        h = torch.where(mask[..., None], torch.as_tensor(
+            rng.normal(size=(B, E_T, D)), dtype=torch.float32), 0.0)
+        g = torch.as_tensor(rng.normal(size=(B, N_T, D)), dtype=torch.float32)
+        h, g, edges, mask = (x.to(dev) for x in (h, g, edges, mask))
+        out, counts = segment_ops.segment_mean_edge(h, edges, mask, N_T)
+        out2, counts2 = segment_ops.segment_mean_edge(h, edges, mask, N_T)
+        ref, ref_counts = segment_ops.segment_mean_counts_ref(h, edges, mask,
+                                                              N_T)
+        dh = segment_ops.segment_mean_backward(g, counts, edges, mask)
+        dh2 = segment_ops.segment_mean_backward(g, counts, edges, mask)
+        with torch.no_grad():   # the node-owner kernel of collect and eval
+            owner = segment_ops.segment_mean(h, edges, mask, N_T)
+            owner2 = segment_ops.segment_mean(h, edges, mask, N_T)
+        hr = h.clone().requires_grad_()
+        dref, = torch.autograd.grad(
+            segment_ops.segment_mean_ref(hr, edges, mask, N_T), hr, g)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(counts, counts2)
+                and torch.equal(dh, dh2) and torch.equal(owner, owner2)):
+            raise AssertionError(f'{gname}: two launches differ bitwise')
+        if not torch.equal(counts, ref_counts):
+            raise AssertionError(f'{gname}: per-edge counts differ')
+        errs = {'segment_mean_edge': float((out - ref).abs().max()),
+                'segment_mean_backward': float((dh - dref).abs().max()),
+                'segment_mean': float((owner - ref).abs().max())}
+        if not all(e <= TOL_KERNEL for e in errs.values()):
+            raise AssertionError(f'{gname}: kernels vs plain {errs} > '
+                                 f'{TOL_KERNEL}')
+        max_err = max(max_err, errs['segment_mean'])  # over both shapes
+        for k in grad_err:
+            grad_err[k] = max(grad_err[k], errs[k])
+        times = {
+            'segment_mean_edge': (
+                cuda_time_ms(lambda: segment_ops.segment_mean_edge(
+                    h, edges, mask, N_T)),
+                cuda_time_ms(lambda: segment_ops.segment_mean_counts_ref(
+                    h, edges, mask, N_T))),
+            'segment_mean_backward': (
+                cuda_time_ms(lambda: segment_ops.segment_mean_backward(
+                    g, counts, edges, mask)),
+                cuda_time_ms(lambda: segment_ops.segment_mean_backward_ref(
+                    g, counts, edges, mask))),
+            'segment_mean': (
+                cuda_time_ms(lambda: segment_ops.segment_mean(
+                    h, edges, mask, N_T)),
+                cuda_time_ms(lambda: segment_ops.segment_mean_ref(
+                    h, edges, mask, N_T))),
+        }
+        for k, (k_ms, p_ms) in times.items():
+            grad_ms.setdefault(k, k_ms)
+            grad_plain_ms.setdefault(k, p_ms)
+        phase('segment_grad_kernel_vs_plain', t0, graph=gname,
+              shape=[B, E_T, N_T, D], max_abs_err=errs, counts_equal=True,
+              bitwise_repeat=True, ms={k: v[0] for k, v in times.items()},
+              plain_ms={k: v[1] for k, v in times.items()})
+    # the two forward kernels, per-edge against node-owner
+    for gname, (e, n, d) in (('rollout_shape', (E_BENCH, N, D)),
+                             ('large_graph', (8192, 4096, 64))):
+        edges, mask = random_graph(rng, B, e, n)
+        h = torch.where(mask[..., None], torch.as_tensor(
+            rng.normal(size=(B, e, d)), dtype=torch.float32), 0.0)
+        h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
+        phase('forward_kernels_per_edge_vs_node_owner', t0, graph=gname,
+              shape=[B, e, n, d], columns_per_block=segment_ops.load_library(
+                  'segment_mean_edge').segment_mean_edge_columns(n, d),
+              per_edge_ms=cuda_time_ms(lambda: segment_ops.segment_mean_edge(
+                  h, edges, mask, n)),
+              node_owner_ms=cuda_time_ms(lambda: segment_ops.segment_mean(
+                  h, edges, mask, n)),
+              plain_ms=cuda_time_ms(lambda: segment_ops.segment_mean_ref(
+                  h, edges, mask, n)))
+
     # ---- 4. model on the card vs the CPU --------------------------------
     t0 = time.time()
     model_cpu = bench.make_model(cfg, spec, seed=0, device='cpu')
@@ -146,13 +262,61 @@ def main():
     phase('model_card_vs_cpu', t0, max_abs_err=errs, masked_equal_pad=pad_ok,
           unmasked_land_use_actions=int(lu_m[0].sum()))
 
+    # ---- 4b. one PPO loss backward on the card vs the CPU ---------------
+    t0 = time.time()
+    m_gpu = bench.make_model(cfg_t, spec_t, seed=1, device=dev)
+    m_cpu = bench.make_model(cfg_t, spec_t, seed=1, device='cpu')
+    init_g = init_t.map(lambda x: x.to(dev))
+    _, traj = rollout(spec_t, m_gpu, init_g, broadcast_state(
+        init_g.replace(done=torch.ones_like(init_g.done)), B),
+        torch.Generator(device=dev).manual_seed(2), 2)
+    obs_mb = tuple(o[1] for o in traj.obs)   # 256 HLG states, one step in
+    grng = np.random.default_rng(3)
+    returns, adv, noise = (torch.as_tensor(grng.normal(size=(B, 1)),
+                                           dtype=torch.float32)
+                           for _ in range(3))
+    exps = torch.as_tensor(grng.random(B) < 0.7, dtype=torch.float32)
+    valid = torch.as_tensor(grng.random(B) < 0.8, dtype=torch.float32)
+    fixed = traj.log_probs[1][:, None].cpu() + 0.3 * noise
+    grads = {}
+    for where, model, d in (('card', m_gpu, dev), ('cpu', m_cpu, 'cpu')):
+        loss, _ = ppo_loss(model, tuple(o.to(d) for o in obs_mb),
+                           traj.actions[1].to(d), returns.to(d), adv.to(d),
+                           fixed.to(d), exps.to(d), PPOConfig(), valid.to(d))
+        loss.backward()
+        grads[where] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    err = {k: float((grads['card'][k] - g).abs().max())
+           for k, g in grads['cpu'].items()}
+    bound = {k: TOL_GRAD_REL * float(g.abs().max()) + TOL_GRAD_ABS
+             for k, g in grads['cpu'].items()}
+    edge_fc = {k: float(g.abs().sum()) for k, g in grads['card'].items()
+               if '.edge_fc.' in k}
+    bad = {k: (e, bound[k]) for k, e in err.items() if not e <= bound[k]}
+    if bad or not all(s > 0 for s in edge_fc.values()):
+        raise AssertionError(f'PPO gradients card vs cpu: {bad}, edge_fc '
+                             f'gradient sums {edge_fc}')
+    h_req = torch.zeros(2, E_T, D, device=dev, requires_grad=True)
+    agg = segment_ops.segment_mean(h_req, obs_mb[2][:2].to(dev),
+                                   obs_mb[5][:2].to(dev), N_T)
+    if agg.grad_fn is None:
+        raise AssertionError('segment_mean on the card has no grad_fn')
+    phase('model_grad_card_vs_cpu', t0, rows=B, parameters=len(err),
+          max_abs_err=max(err.values()),
+          max_err_over_bound=max(err[k] / bound[k] for k in err),
+          tolerance=[TOL_GRAD_REL, TOL_GRAD_ABS],
+          edge_fc_grad_abs_sums=edge_fc,
+          segment_mean_grad_fn=type(agg.grad_fn).__name__)
+
     # ---- 5. the slice: batched HLG rollout ------------------------------
     t0 = time.time()
     bench.run_rollout_bench(num_envs=B, num_steps=2, device=dev)  # warm-up
-    segment_ops.launches = 0
-    stats = bench.run_rollout_bench(num_envs=B, num_steps=30, device=dev)
-    launches = segment_ops.launches
-    expect = 30 * model_cpu.num_gcn_layers
+    layers = model_cpu.num_gcn_layers
+    segment_ops.reset_launches()
+    stats = bench.run_rollout_bench(num_envs=B, num_steps=ROLLOUT_STEPS,
+                                    device=dev)
+    launches = dict(segment_ops.launches)
+    expect = {'segment_mean': ROLLOUT_STEPS * layers,
+              'segment_mean_edge': 0, 'segment_mean_backward': 0}
     if launches != expect:
         raise AssertionError(f'kernel launches {launches} != {expect}')
     if stats['episodes'] < 1:
@@ -204,17 +368,73 @@ def main():
     phase('lockstep_gpu_vs_cpu', t0, envs=n_env, steps=n_steps,
           agreeing_steps=agree)
 
+    # ---- 7. the training slice: one PPO train_iteration, then eval ------
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as run_dir:
+        trainer = bench.make_trainer(TRAIN_ENVS, TRAIN_LEN, dev, seed=0,
+                                     eval_envs=EVAL_ENVS, root_dir=run_dir)
+        before = {k: p.detach().clone()
+                  for k, p in trainer.model.named_parameters()}
+        train = bench.measure_train_iteration(trainer)  # resets the counts
+        train_launches = train['kernel_launches']
+        mb_layers = train['update_minibatch_steps'] * layers
+        expect = {'segment_mean': TRAIN_LEN * layers,
+                  'segment_mean_edge': mb_layers,
+                  'segment_mean_backward': mb_layers}
+        if train_launches != expect:
+            raise AssertionError(f'train kernel launches {train_launches} '
+                                 f'!= {expect}')
+        if not all(np.isfinite(v) for v in train['losses'].values()):
+            raise AssertionError(f'non-finite loss stats {train["losses"]}')
+        # HLG plans land use only (skip_road): the road head's gradient is
+        # exactly zero and Adam leaves it as it was; everything else moves
+        unchanged = sorted(k for k, p in trainer.model.named_parameters()
+                           if torch.equal(p, before[k]))
+        if any(not k.startswith('road_head.') for k in unchanged):
+            raise AssertionError(f'parameters the update left as they were: '
+                                 f'{unchanged}')
+        if train['episodes'] < 1:
+            raise AssertionError('no episode ended in the train rollout')
+        if not train['overflow_gate_1pct_pass']:
+            raise AssertionError(f'capacity gate: {train}')
+        phase('train', t0, unchanged_parameters=unchanged, **train)
+
+        t0 = time.time()
+        segment_ops.reset_launches()
+        eval_r, chans = trainer.eval_agent(0)
+        eval_launches = dict(segment_ops.launches)
+        expect = {'segment_mean': TRAIN_LEN * layers,
+                  'segment_mean_edge': 0, 'segment_mean_backward': 0}
+        if eval_launches != expect:
+            raise AssertionError(f'eval kernel launches {eval_launches} != '
+                                 f'{expect}')
+        if not all(np.isfinite(v) for v in (eval_r, *chans.values())):
+            raise AssertionError(f'non-finite eval {eval_r} {chans}')
+        phase('eval', t0, eval_envs=EVAL_ENVS, steps=TRAIN_LEN,
+              mean_successful_reward=eval_r, channels=chans,
+              best_reward=trainer.best_reward, kernel_launches=eval_launches)
+
     phase('total', t_start)
+    kernels = [
+        ('segment_mean', 'urban_tpu/ops/pallas/segment_ops.py:108',
+         launches['segment_mean'] + train_launches['segment_mean']
+         + eval_launches['segment_mean'], max_err, ms[0], plain_ms[0]),
+        ('segment_mean_edge', 'urban_tpu/ops/pallas/segment_ops.py:37',
+         train_launches['segment_mean_edge'], grad_err['segment_mean_edge'],
+         grad_ms['segment_mean_edge'], grad_plain_ms['segment_mean_edge']),
+        ('segment_mean_backward',
+         'none: no TPU counterpart (the Pallas segment-mean kernels of '
+         'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
+         train_launches['segment_mean_backward'],
+         grad_err['segment_mean_backward'], grad_ms['segment_mean_backward'],
+         grad_plain_ms['segment_mean_backward']),
+    ]
     print(json.dumps({'kernels': [{
-        'name': 'segment_mean',
-        'route': 'cuda',
-        'source': 'urban_tpu_torch/csrc/segment_mean.cu',
-        'replaces': 'urban_tpu/ops/pallas/segment_ops.py:108',
-        'launches': launches,
-        'max_abs_err': max_err,
-        'ms': ms[0],
-        'plain_ms': plain_ms[0],
-    }]}))
+        'name': name, 'route': 'cuda',
+        'source': f'urban_tpu_torch/csrc/{segment_ops.KERNELS[name][0]}',
+        'replaces': replaces, 'launches': n, 'max_abs_err': err,
+        'ms': k_ms, 'plain_ms': p_ms}
+        for name, replaces, n, err, k_ms, p_ms in kernels]}))
     print(smi_line)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

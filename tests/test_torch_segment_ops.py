@@ -1,5 +1,7 @@
 """The port's segment mean (urban_tpu_torch.ops.segment_ops) against the JAX
-package's XLA scatter and its Pallas kernel (interpret mode).
+package's XLA scatter and its two Pallas kernels (interpret mode): the
+one-hot kernel the rollout's node-owner kernel ports, and the per-edge
+kernel the training forward's per-edge kernel ports.
 
 Same inputs, made with numpy from a seed, go to both packages. Tolerance
 1e-5 absolute: f32 sums of a few O(1) terms, taken in another order.
@@ -39,21 +41,25 @@ def _graph(case, B=3, E=96, N=40, D=8, seed=0):
     return h, edges, mask, N
 
 
-@pytest.mark.parametrize('case', ['bipartite', 'masked_sentinel',
-                                  'self_loop'])
-def test_ref_matches_xla_and_pallas(case):
+CASES = ['bipartite', 'masked_sentinel', 'self_loop']
+
+
+@pytest.mark.parametrize('case,kernel', [
+    *(pytest.param(c, 'onehot', id=c) for c in CASES),
+    *(pytest.param(c, 'per_edge', id=f'per_edge-{c}') for c in CASES)])
+def test_ref_matches_xla_and_pallas(case, kernel):
     import jax.numpy as jnp
-    from urban_tpu.ops.pallas.segment_ops import (segment_mean_onehot_pallas,
-                                                  segment_mean_xla)
+    from urban_tpu.ops.pallas import segment_ops as jseg
     h, edges, mask, N = _graph(case)
     out = segment_ops.segment_mean_ref(torch.as_tensor(h),
                                        torch.as_tensor(edges),
                                        torch.as_tensor(mask), N).numpy()
-    xla = np.asarray(segment_mean_xla(jnp.asarray(h), jnp.asarray(edges),
-                                      jnp.asarray(mask), N))
-    pallas = np.asarray(segment_mean_onehot_pallas(
-        jnp.asarray(h), jnp.asarray(edges), jnp.asarray(mask), N,
-        interpret=True))
+    xla = np.asarray(jseg.segment_mean_xla(jnp.asarray(h), jnp.asarray(edges),
+                                           jnp.asarray(mask), N))
+    pallas_fn = {'onehot': jseg.segment_mean_onehot_pallas,
+                 'per_edge': jseg.segment_mean_pallas}[kernel]
+    pallas = np.asarray(pallas_fn(jnp.asarray(h), jnp.asarray(edges),
+                                  jnp.asarray(mask), N, interpret=True))
     np.testing.assert_allclose(out, xla, rtol=0, atol=ATOL)
     np.testing.assert_allclose(out, pallas, rtol=0, atol=ATOL)
 
@@ -74,7 +80,7 @@ def test_masked_edges_ignore_their_rows():
 
 def test_wrapper_on_cpu_runs_plain_version():
     h, edges, mask, N = _graph('bipartite', seed=2)
-    before = segment_ops.launches
+    before = dict(segment_ops.launches)
     out = segment_ops.segment_mean(torch.as_tensor(h), torch.as_tensor(edges),
                                    torch.as_tensor(mask), N)
     ref = segment_ops.segment_mean_ref(torch.as_tensor(h),
@@ -121,11 +127,11 @@ def test_kernel_on_card():
     dev = torch.device('cuda')
     args = (torch.as_tensor(h, device=dev), torch.as_tensor(edges, device=dev),
             torch.as_tensor(mask, device=dev))
-    before = segment_ops.launches
+    before = segment_ops.launches['segment_mean']
     out = segment_ops.segment_mean(*args, N)
     again = segment_ops.segment_mean(*args, N)
     ref = segment_ops.segment_mean_ref(*args, N)
     torch.cuda.synchronize()
-    assert segment_ops.launches == before + 2
+    assert segment_ops.launches['segment_mean'] == before + 2
     assert torch.equal(out, again)
     assert float((out - ref).abs().max()) <= ATOL

@@ -1,17 +1,21 @@
 """Batched HLG rollout throughput of the port: the SGNN policy sampling in
 the loop with the batched environment, the same scenario, capacities and
-model as the JAX package's root bench.py.
+model as the JAX package's root bench.py; and, with --train, one PPO
+train_iteration of the HLG trainer.
 
     python -m urban_tpu_torch.bench --num_envs 256 --num_steps 30 --device cuda
+    python -m urban_tpu_torch.bench --train --num_envs 256 --rollout_len 50
 
-prints one JSON line of the rollout statistics. A rate measured on a CPU
-says nothing about the card; the result names the device it ran on.
+prints one JSON line of the statistics. A rate measured on a CPU says
+nothing about the card; the result names the device it ran on.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import os
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -20,9 +24,9 @@ import torch
 from urban_tpu.envs.plan_client import PlanClient
 from urban_tpu.utils.io import load_yaml
 from urban_tpu_torch.models.model import create_model
-from urban_tpu_torch.torchenv.rollout import broadcast_state, rollout_bench
+from urban_tpu_torch.torchenv.rollout import (broadcast_state, failure_causes,
+                                              overflow_failures, rollout_bench)
 from urban_tpu_torch.torchenv.state import build_env_spec, build_initial_state
-from urban_tpu_torch.torchenv.step import FAILURE_BIT_NAMES
 
 # slot capacities of the HLG bench (root bench.py)
 BENCH_CAPS = dict(KV=20, NP=256, NS=512, NPT=320, NE=2304)
@@ -103,15 +107,8 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
     _sync(device)
     dt = time.perf_counter() - t0
     eps, fails = int(n_eps), int(n_fail)
-    hist = code_hist.cpu().tolist()
-    # the histogram holds bit i of the failure code at index i
-    causes = {name: hist[bit.bit_length() - 1]
-              for bit, name in FAILURE_BIT_NAMES.items()
-              if hist[bit.bit_length() - 1]}
-    # capacity-class failures (slot-table overflow) must stay rare
-    overflow = sum(hist[bit.bit_length() - 1]
-                   for bit, name in FAILURE_BIT_NAMES.items()
-                   if name.endswith('_overflow'))
+    causes = failure_causes(code_hist.cpu())
+    overflow = overflow_failures(causes)
     return {
         'device': (torch.cuda.get_device_name(device)
                    if device.type == 'cuda' else 'cpu'),
@@ -122,6 +119,64 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
         'overflow_failures': overflow,
         'overflow_gate_1pct_pass': overflow <= 0.01 * max(eps, 1),
     }
+
+
+def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
+                 seed: int = 0, eval_envs: int = 16, root_dir: str = None):
+    """The HLG PPO trainer at the trainer's own capacities; its run logs
+    go under root_dir (default: the temp directory)."""
+    from urban_tpu.utils.config import Config
+    from urban_tpu_torch.rl.trainer import Trainer
+    set_precision_flags()
+    root_dir = root_dir or os.path.join(tempfile.gettempdir(),
+                                        'urban_tpu_torch')
+    cfg = Config('hlg', seed, tmp=False, root_dir=root_dir)
+    return Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
+                   eval_envs=eval_envs, device=device)
+
+
+def measure_train_iteration(trainer) -> dict:
+    """One train_iteration (collect + update, no eval): its phase times,
+    the rates, the kernel launches of the iteration and the peak device
+    memory."""
+    from urban_tpu_torch.ops import segment_ops
+    device = trainer.device
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
+    segment_ops.reset_launches()
+    st = trainer.train_iteration(0, do_eval=False)
+    cfg = trainer.cfg
+    n = trainer.num_envs * trainer.rollout_len
+    mb_steps = cfg.num_optim_epoch * max(n // min(cfg.mini_batch_size, n), 1)
+    overflow = overflow_failures(st.failure_causes)
+    return {
+        'device': (torch.cuda.get_device_name(device)
+                   if device.type == 'cuda' else 'cpu'),
+        'num_envs': trainer.num_envs, 'rollout_len': trainer.rollout_len,
+        'num_nodes': trainer.spec.num_features, 'num_edges': trainer.spec.NE,
+        't_sample_s': st.sample_time, 't_update_s': st.update_time,
+        'train_steps_per_sec': n / (st.sample_time + st.update_time),
+        'update_minibatch_steps': mb_steps,
+        'update_minibatch_steps_per_sec': mb_steps / st.update_time,
+        'episodes': st.episodes, 'failures': st.failures,
+        'failure_causes': st.failure_causes,
+        'success_frac': st.success_frac,
+        'mean_episode_reward': st.mean_episode_reward,
+        'losses': st.losses, 'value_mc_rms': trainer.last_value_mc_rms,
+        'overflow_failures': overflow,
+        'overflow_gate_1pct_pass': overflow <= 0.01 * max(st.episodes, 1),
+        'kernel_launches': dict(segment_ops.launches),
+        'max_memory_allocated_bytes': (
+            torch.cuda.max_memory_allocated(device)
+            if device.type == 'cuda' else None),
+    }
+
+
+def run_train_bench(num_envs: int = 256, rollout_len: int = 50,
+                    device='cuda', seed: int = 0) -> dict:
+    """One PPO train_iteration of the HLG trainer (no eval)."""
+    return measure_train_iteration(make_trainer(num_envs, rollout_len,
+                                                device, seed))
 
 
 @torch.no_grad()
@@ -212,9 +267,17 @@ def main() -> None:
     ap.add_argument('--profile', action='store_true',
                     help='per-layer times and a device trace of num_steps '
                     'steps instead of the throughput run')
+    ap.add_argument('--train', action='store_true',
+                    help='one PPO train_iteration of num_envs x rollout_len '
+                    'steps instead of the rollout')
+    ap.add_argument('--rollout_len', type=int, default=50)
     a = ap.parse_args()
-    fn = profile_rollout if a.profile else run_rollout_bench
-    print(json.dumps(fn(a.num_envs, a.num_steps, a.device, a.seed)))
+    if a.train:
+        out = run_train_bench(a.num_envs, a.rollout_len, a.device, a.seed)
+    else:
+        fn = profile_rollout if a.profile else run_rollout_bench
+        out = fn(a.num_envs, a.num_steps, a.device, a.seed)
+    print(json.dumps(out))
 
 
 if __name__ == '__main__':

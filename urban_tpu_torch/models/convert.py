@@ -1,4 +1,5 @@
-"""Load a Flax ActorCritic parameter tree into the port's ActorCritic.
+"""Convert between a Flax ActorCritic parameter tree and the port's
+ActorCritic, in both directions.
 
 The tree is nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the JAX side). Flax ``Dense.kernel`` is (in, out) and becomes
@@ -46,6 +47,20 @@ def _linear_map(model: ActorCritic) -> Dict[str, torch.nn.Linear]:
     for i, layer in enumerate(model.value_mlp):
         m[f'value_mlp_{i}'] = layer
     return m
+
+
+def to_flax_params(model: ActorCritic) -> Dict[str, Dict]:
+    """The model's parameters as a Flax tree {'params': {...}} of numpy
+    arrays (the inverse of load_flax_params)."""
+    tree = {}
+    for path, layer in _linear_map(model).items():
+        node = tree
+        for key in path.split('/'):
+            node = node.setdefault(key, {})
+        node['kernel'] = layer.weight.detach().cpu().numpy().T.copy()
+        if layer.bias is not None:
+            node['bias'] = layer.bias.detach().cpu().numpy().copy()
+    return {'params': tree}
 
 
 def load_flax_params(model: ActorCritic, params: Mapping) -> ActorCritic:

@@ -12,7 +12,8 @@ from torch import nn
 
 from urban_tpu import city_config
 from urban_tpu_torch.models.encoder import SGNNStateEncoder
-from urban_tpu_torch.models.policy import (PolicyHead, categorical_log_prob,
+from urban_tpu_torch.models.policy import (PolicyHead, categorical_entropy,
+                                           categorical_log_prob,
                                            categorical_sample, masked_logits)
 
 # observation widths (urban_tpu_torch.torchenv.step.build_obs)
@@ -56,26 +57,92 @@ class ActorCritic(nn.Module):
     def forward(self, obs):
         return self._trunk(obs)
 
-    def sample_action_logp_value(self, obs, generator: torch.Generator,
-                                 use_mean: torch.Tensor) -> Tuple:
-        """One trunk pass for rollouts: the action (B, 2) (sampled, or the
-        argmax where use_mean), its log-prob (B, 1) and the value (B, 1)."""
-        lu_logits, road_logits, stage, value = self._trunk(obs)
+    def value(self, obs):
+        return self._trunk(obs)[3]
+
+    @staticmethod
+    def _stage_action(stage, lu_action, road_action):
+        """(B, 2) slot action: the head of the current stage, 0 elsewhere."""
+        in_lu = stage[..., 0] > 0.5
+        in_road = stage[..., 1] > 0.5
+        return torch.stack([torch.where(in_lu, lu_action, 0),
+                            torch.where(in_road, road_action, 0)],
+                           dim=-1).to(torch.int32)
+
+    @staticmethod
+    def _mixed_action(lu_logits, road_logits, stage, generator, use_mean):
         lu_sample = categorical_sample(lu_logits, generator)
         road_sample = categorical_sample(road_logits, generator)
         lu_action = torch.where(use_mean, torch.argmax(lu_logits, dim=-1),
                                 lu_sample)
         road_action = torch.where(use_mean, torch.argmax(road_logits, dim=-1),
                                   road_sample)
+        return ActorCritic._stage_action(stage, lu_action, road_action)
+
+    @staticmethod
+    def _stage_select(stage, lu_x, road_x):
         in_lu = stage[..., 0] > 0.5
         in_road = stage[..., 1] > 0.5
-        action = torch.stack([torch.where(in_lu, lu_action, 0),
-                              torch.where(in_road, road_action, 0)], dim=-1)
-        lu_lp = categorical_log_prob(lu_logits, action[..., 0])
-        road_lp = categorical_log_prob(road_logits, action[..., 1])
-        log_prob = torch.where(in_lu, lu_lp,
-                               torch.where(in_road, road_lp, 0.0))
-        return action.to(torch.int32), log_prob[..., None], value
+        return torch.where(in_lu, lu_x, torch.where(in_road, road_x, 0.0))
+
+    def select_action(self, obs, generator: torch.Generator,
+                      mean_action: bool = False):
+        """(B, 2) action: sampled, or the argmax with mean_action (which
+        draws nothing from the generator)."""
+        lu_logits, road_logits, stage, _ = self._trunk(obs)
+        if mean_action:
+            return self._stage_action(stage, torch.argmax(lu_logits, dim=-1),
+                                      torch.argmax(road_logits, dim=-1))
+        return self._stage_action(stage,
+                                  categorical_sample(lu_logits, generator),
+                                  categorical_sample(road_logits, generator))
+
+    def select_action_mixed(self, obs, generator: torch.Generator,
+                            use_mean: torch.Tensor):
+        """Per-row choice between sampling and the argmax (noise-rate
+        control)."""
+        lu_logits, road_logits, stage, _ = self._trunk(obs)
+        return self._mixed_action(lu_logits, road_logits, stage, generator,
+                                  use_mean)
+
+    def sample_action_logp_value(self, obs, generator: torch.Generator,
+                                 use_mean: torch.Tensor) -> Tuple:
+        """One trunk pass for rollouts: the action (B, 2) (sampled, or the
+        argmax where use_mean), its log-prob (B, 1) and the value (B, 1)."""
+        lu_logits, road_logits, stage, value = self._trunk(obs)
+        action = self._mixed_action(lu_logits, road_logits, stage, generator,
+                                    use_mean)
+        log_prob = self._stage_select(
+            stage, categorical_log_prob(lu_logits, action[..., 0]),
+            categorical_log_prob(road_logits, action[..., 1]))
+        return action, log_prob[..., None], value
+
+    def log_prob_entropy_value(self, obs, action) -> Tuple:
+        """One trunk pass serving the whole PPO loss: log-prob, entropy and
+        value, each (B, 1)."""
+        lu_logits, road_logits, stage, value = self._trunk(obs)
+        log_prob = self._stage_select(
+            stage, categorical_log_prob(lu_logits, action[..., 0]),
+            categorical_log_prob(road_logits, action[..., 1]))
+        entropy = self._stage_select(stage, categorical_entropy(lu_logits),
+                                     categorical_entropy(road_logits))
+        return log_prob[..., None], entropy[..., None], value
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every Linear as flax.linen.Dense initializes it: the weight
+    from lecun_normal (a normal truncated at two standard deviations,
+    variance 1 / fan_in after truncation), the bias zero."""
+    trunc_std = 0.87962566103423978   # std of a unit normal cut to [-2, 2]
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            std = (1.0 / m.in_features) ** 0.5 / trunc_std
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model
 
 
 def create_model(cfg, max_num_nodes: int | None = None,
