@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from the sources in the checkout (one nvcc
-per source, all at once) and checks each against its plain PyTorch version
-at the shapes of the main paths: the node-owner segment mean of the
-rollout (at the rollout's and the trainer's graph sizes), and the per-edge
-segment mean and its backward of the PPO update.
+Builds the two CUDA kernels from the sources in the checkout (one nvcc per
+source, all at once) and checks each against its plain PyTorch version at
+the shapes of the main paths: the forward segment mean, which every path
+runs, at the rollout's, the trainer's and a large graph's size, and its
+backward at the trainer's, each timed beside one PyTorch library call and
+its memory bound (urban_tpu_torch/kernel_bench.py).
 Runs the SGNN policy on the card against the same model on the CPU, and
 one PPO loss backward on the card against the CPU. Drives the batched HLG
 rollout (256 envs x 30 steps), steps GPU and CPU environments in lockstep,
@@ -30,7 +31,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-B, E_BENCH, D = 256, 2304, 16
 TOL_KERNEL = 1e-5        # kernel vs plain segment mean (f32, other sum order)
 TOL_MODEL = 1e-4         # policy logits / value, card vs CPU
 STATE_RTOL, STATE_ATOL = 1e-5, 1e-4   # float state fields, as the CPU tests
@@ -51,33 +51,6 @@ def phase(name, t0, **kv):
                       **kv}), flush=True)
 
 
-def cuda_time_ms(fn, reps=20):
-    """Median over reps of CUDA-event times of fn(), after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def random_graph(rng, batch, n_edges, n_nodes):
-    """Bipartite endpoints (the domain's block x intersection graphs) as
-    int32, and a mask with 30% of the edges masked out."""
-    half = n_nodes // 2
-    edges = np.concatenate([rng.integers(0, half, (batch, n_edges, 1)),
-                            rng.integers(half, n_nodes, (batch, n_edges, 1))],
-                           -1)
-    return (torch.as_tensor(edges, dtype=torch.int32),
-            torch.as_tensor(rng.random((batch, n_edges)) >= 0.3))
-
-
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -85,6 +58,7 @@ def main():
                          'fallback for this check')
 
     from urban_tpu_torch import bench
+    from urban_tpu_torch import kernel_bench as kb
     from urban_tpu_torch.models.policy import MASK_PAD
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
@@ -94,6 +68,7 @@ def main():
                                                   make_batch_fns, rollout)
     bench.set_precision_flags()
     dev = torch.device('cuda', 0)
+    B = kb.B
 
     # ---- 1. device ------------------------------------------------------
     t0 = time.time()
@@ -113,133 +88,120 @@ def main():
     phase('build', t0, nvcc_seconds=segment_ops.build_seconds,
           libraries={k: os.path.relpath(v, root) for k, v in libs.items()})
 
-    # ---- 3. kernel vs plain at the path's shape -------------------------
+    # ---- 3. the kernels against their plain versions --------------------
+    # the forward at every shape of kb.SHAPES, on a random bipartite graph
+    # (timed) and, at the rollout's and the trainer's size, on the initial
+    # HLG observation; the backward at the trainer's size, which only the
+    # PPO update runs
     t0 = time.time()
     cfg, spec, init_cpu = bench.setup('hlg', bench.BENCH_CAPS, 'cpu')
-    N = spec.num_features
     batch_obs_cpu, batch_step_cpu = make_batch_fns(spec)
     obs0 = batch_obs_cpu(broadcast_state(init_cpu, 1))
-    rng = np.random.default_rng(0)
-    graphs = {
-        'random_bipartite_30pct_masked': random_graph(rng, B, E_BENCH, N),
-        'hlg_initial_observation': (
-            obs0[2].expand(B, -1, -1).contiguous(),
-            obs0[5].expand(B, -1).contiguous()),
-    }
-    max_err, ms, plain_ms = 0.0, [], []
-    for gname, (edges, mask) in graphs.items():
-        h = torch.as_tensor(rng.normal(size=(B, E_BENCH, D)),
-                            dtype=torch.float32)
-        h = torch.where(mask[..., None], h, 0.0)
-        h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
-        out = segment_ops.segment_mean(h, edges, mask, N)
-        again = segment_ops.segment_mean(h, edges, mask, N)
-        ref = segment_ops.segment_mean_ref(h, edges, mask, N)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not torch.equal(out, again):
-            raise AssertionError(f'{gname}: two launches differ bitwise')
-        if not err <= TOL_KERNEL:
-            raise AssertionError(f'{gname}: kernel vs plain {err} > '
-                                 f'{TOL_KERNEL}')
-        max_err = max(max_err, err)
-        k_ms = cuda_time_ms(lambda: segment_ops.segment_mean(h, edges, mask, N))
-        p_ms = cuda_time_ms(lambda: segment_ops.segment_mean_ref(h, edges,
-                                                                 mask, N))
-        ms.append(k_ms)
-        plain_ms.append(p_ms)
-        phase('kernel_vs_plain', t0, graph=gname, shape=[B, E_BENCH, N, D],
-              max_abs_err=err, bitwise_repeat=True, kernel_ms=k_ms,
-              plain_ms=p_ms)
-
-    # ---- 3b. all three kernels at the trainer's shape --------------------
-    # E=3000 is not a multiple of the node-owner kernel's 256-edge chunk at
-    # D=16, so this also reaches its partial last chunk, which collect and
-    # eval run and the rollout's E=2304 does not
-    t0 = time.time()
     cfg_t, spec_t, init_t = bench.setup('hlg', {}, 'cpu')  # trainer caps
     N_T, E_T = spec_t.num_features, spec_t.NE
     obs_t = make_batch_fns(spec_t)[0](broadcast_state(init_t, 1))
-    edges_r, mask_r = random_graph(rng, B, E_T, N_T)
-    grad_graphs = {
-        'random_bipartite_30pct_masked': (edges_r, mask_r),
-        'hlg_initial_observation': (obs_t[2].expand(B, -1, -1).contiguous(),
-                                    obs_t[5].expand(B, -1).contiguous()),
-    }
-    grad_err = {'segment_mean_edge': 0.0, 'segment_mean_backward': 0.0}
-    grad_ms, grad_plain_ms = {}, {}
-    for gname, (edges, mask) in grad_graphs.items():
-        h = torch.where(mask[..., None], torch.as_tensor(
-            rng.normal(size=(B, E_T, D)), dtype=torch.float32), 0.0)
-        g = torch.as_tensor(rng.normal(size=(B, N_T, D)), dtype=torch.float32)
-        h, g, edges, mask = (x.to(dev) for x in (h, g, edges, mask))
-        out, counts = segment_ops.segment_mean_edge(h, edges, mask, N_T)
-        out2, counts2 = segment_ops.segment_mean_edge(h, edges, mask, N_T)
-        ref, ref_counts = segment_ops.segment_mean_counts_ref(h, edges, mask,
-                                                              N_T)
-        dh = segment_ops.segment_mean_backward(g, counts, edges, mask)
-        dh2 = segment_ops.segment_mean_backward(g, counts, edges, mask)
-        with torch.no_grad():   # the node-owner kernel of collect and eval
-            owner = segment_ops.segment_mean(h, edges, mask, N_T)
-            owner2 = segment_ops.segment_mean(h, edges, mask, N_T)
-        hr = h.clone().requires_grad_()
-        dref, = torch.autograd.grad(
-            segment_ops.segment_mean_ref(hr, edges, mask, N_T), hr, g)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, out2) and torch.equal(counts, counts2)
-                and torch.equal(dh, dh2) and torch.equal(owner, owner2)):
-            raise AssertionError(f'{gname}: two launches differ bitwise')
-        if not torch.equal(counts, ref_counts):
-            raise AssertionError(f'{gname}: per-edge counts differ')
-        errs = {'segment_mean_edge': float((out - ref).abs().max()),
-                'segment_mean_backward': float((dh - dref).abs().max()),
-                'segment_mean': float((owner - ref).abs().max())}
-        if not all(e <= TOL_KERNEL for e in errs.values()):
-            raise AssertionError(f'{gname}: kernels vs plain {errs} > '
-                                 f'{TOL_KERNEL}')
-        max_err = max(max_err, errs['segment_mean'])  # over both shapes
-        for k in grad_err:
-            grad_err[k] = max(grad_err[k], errs[k])
-        times = {
-            'segment_mean_edge': (
-                cuda_time_ms(lambda: segment_ops.segment_mean_edge(
-                    h, edges, mask, N_T)),
-                cuda_time_ms(lambda: segment_ops.segment_mean_counts_ref(
-                    h, edges, mask, N_T))),
-            'segment_mean_backward': (
-                cuda_time_ms(lambda: segment_ops.segment_mean_backward(
-                    g, counts, edges, mask)),
-                cuda_time_ms(lambda: segment_ops.segment_mean_backward_ref(
-                    g, counts, edges, mask))),
-            'segment_mean': (
-                cuda_time_ms(lambda: segment_ops.segment_mean(
-                    h, edges, mask, N_T)),
-                cuda_time_ms(lambda: segment_ops.segment_mean_ref(
-                    h, edges, mask, N_T))),
-        }
-        for k, (k_ms, p_ms) in times.items():
-            grad_ms.setdefault(k, k_ms)
-            grad_plain_ms.setdefault(k, p_ms)
-        phase('segment_grad_kernel_vs_plain', t0, graph=gname,
-              shape=[B, E_T, N_T, D], max_abs_err=errs, counts_equal=True,
-              bitwise_repeat=True, ms={k: v[0] for k, v in times.items()},
-              plain_ms={k: v[1] for k, v in times.items()})
-    # the two forward kernels, per-edge against node-owner
-    for gname, (e, n, d) in (('rollout_shape', (E_BENCH, N, D)),
-                             ('large_graph', (8192, 4096, 64))):
-        edges, mask = random_graph(rng, B, e, n)
-        h = torch.where(mask[..., None], torch.as_tensor(
-            rng.normal(size=(B, e, d)), dtype=torch.float32), 0.0)
-        h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
-        phase('forward_kernels_per_edge_vs_node_owner', t0, graph=gname,
-              shape=[B, e, n, d], columns_per_block=segment_ops.load_library(
-                  'segment_mean_edge').segment_mean_edge_columns(n, d),
-              per_edge_ms=cuda_time_ms(lambda: segment_ops.segment_mean_edge(
-                  h, edges, mask, n)),
-              node_owner_ms=cuda_time_ms(lambda: segment_ops.segment_mean(
-                  h, edges, mask, n)),
-              plain_ms=cuda_time_ms(lambda: segment_ops.segment_mean_ref(
-                  h, edges, mask, n)))
+    hlg_obs = {'rollout': obs0, 'trainer': obs_t}
+    rng = np.random.default_rng(0)
+    fwd, bwd, fwd_err, bwd_err = {}, None, 0.0, 0.0
+    for shape, e, n, d in kb.SHAPES:
+        graphs = {'random_bipartite_30pct_masked': kb.random_graph(rng, B, e,
+                                                                   n)}
+        if shape in hlg_obs:
+            o = hlg_obs[shape]
+            if tuple(o[2].shape[1:2]) + tuple(o[4].shape[1:2]) != (e, n):
+                raise AssertionError(f'{shape}: HLG graph is not {(e, n)}')
+            graphs['hlg_initial_observation'] = (
+                o[2].expand(B, -1, -1).contiguous(),
+                o[5].expand(B, -1).contiguous())
+        for gname, (edges, mask) in graphs.items():
+            timed = gname.startswith('random_bipartite')
+            h = torch.where(mask[..., None], torch.as_tensor(
+                rng.normal(size=(B, e, d)), dtype=torch.float32), 0.0)
+            cpu_out, cpu_counts = segment_ops.segment_mean_counts_ref(
+                h, edges, mask, n)
+            h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
+            out, counts = segment_ops.segment_mean_counts(h, edges, mask, n)
+            again, counts2 = segment_ops.segment_mean_counts(h, edges, mask,
+                                                             n)
+            with torch.no_grad():   # rollout, collect and eval
+                no_grad = segment_ops.segment_mean(h, edges, mask, n)
+            ref = segment_ops.segment_mean_ref(h, edges, mask, n)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again) and torch.equal(counts, counts2)
+                    and torch.equal(out, no_grad)):
+                raise AssertionError(f'{shape} {gname}: launches differ')
+            if not torch.equal(counts.cpu(), cpu_counts):
+                raise AssertionError(f'{shape} {gname}: counts differ')
+            err = float((out - ref).abs().max())
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f'{shape} {gname}: kernel vs plain '
+                                     f'{err} > {TOL_KERNEL}')
+            # on a bipartite graph the CPU plain version adds each node's
+            # rows in edge order, as the kernel does; on the HLG graph
+            # some nodes are both first and second endpoints, and its two
+            # index_add_ passes add them in another order
+            same_bits = torch.equal(out.cpu(), cpu_out)
+            if timed and not same_bits:
+                raise AssertionError(f'{shape} {gname}: not the CPU plain '
+                                     f'version\'s bits')
+            fwd_err = max(fwd_err, err)
+            times = {}
+            if timed:
+                lib, lib_out = kb.library_forward(h, edges, mask, n)
+                lib_err = float((lib_out - ref).abs().max())
+                if not lib_err <= TOL_KERNEL:
+                    raise AssertionError(f'{shape}: library forward {lib_err}')
+                def kernel():
+                    return segment_ops.segment_mean_counts(h, edges, mask, n)
+                times = fwd[shape] = {
+                    'ms': kb.cuda_time_ms(kernel),
+                    'device_ms': kb.device_time_ms(kernel),
+                    'plain_ms': kb.cuda_time_ms(
+                        lambda: segment_ops.segment_mean_counts_ref(
+                            h, edges, mask, n)),
+                    'library_ms': kb.cuda_time_ms(lib),
+                    'bound_ms': kb.bound_ms(kb.forward_bytes(edges, mask, n,
+                                                             d))}
+            phase('segment_mean_vs_plain', t0, shape=shape, graph=gname,
+                  BEND=[B, e, n, d], max_abs_err=err, bitwise_repeat=True,
+                  counts_equal=True, same_bits_as_cpu_plain=same_bits,
+                  **times)
+            if shape != 'trainer':
+                continue
+            g = torch.as_tensor(rng.normal(size=(B, n, d)),
+                                dtype=torch.float32).to(dev)
+            dh = segment_ops.segment_mean_backward(g, counts, edges, mask)
+            dh2 = segment_ops.segment_mean_backward(g, counts, edges, mask)
+            hr = h.clone().requires_grad_()
+            dref, = torch.autograd.grad(
+                segment_ops.segment_mean_ref(hr, edges, mask, n), hr, g)
+            torch.cuda.synchronize()
+            err = float((dh - dref).abs().max())
+            if not (torch.equal(dh, dh2) and err <= TOL_KERNEL):
+                raise AssertionError(f'{gname}: backward {err}, bitwise '
+                                     f'repeat {torch.equal(dh, dh2)}')
+            bwd_err = max(bwd_err, err)
+            times = {}
+            if timed:
+                lib, lib_dh = kb.library_backward(g, counts, edges, mask)
+                lib_err = float((lib_dh - dref).abs().max())
+                if not lib_err <= TOL_KERNEL:
+                    raise AssertionError(f'library backward {lib_err}')
+                def kernel():
+                    return segment_ops.segment_mean_backward(g, counts, edges,
+                                                             mask)
+                times = bwd = {
+                    'ms': kb.cuda_time_ms(kernel),
+                    'device_ms': kb.device_time_ms(kernel),
+                    'plain_ms': kb.cuda_time_ms(
+                        lambda: segment_ops.segment_mean_backward_ref(
+                            g, counts, edges, mask)),
+                    'library_ms': kb.cuda_time_ms(lib),
+                    'bound_ms': kb.bound_ms(kb.backward_bytes(
+                        edges, mask, counts, d))}
+            phase('segment_mean_backward_vs_plain', t0, shape=shape,
+                  graph=gname, BEND=[B, e, n, d], max_abs_err=err,
+                  bitwise_repeat=True, **times)
 
     # ---- 4. model on the card vs the CPU --------------------------------
     t0 = time.time()
@@ -295,7 +257,7 @@ def main():
     if bad or not all(s > 0 for s in edge_fc.values()):
         raise AssertionError(f'PPO gradients card vs cpu: {bad}, edge_fc '
                              f'gradient sums {edge_fc}')
-    h_req = torch.zeros(2, E_T, D, device=dev, requires_grad=True)
+    h_req = torch.zeros(2, E_T, 16, device=dev, requires_grad=True)
     agg = segment_ops.segment_mean(h_req, obs_mb[2][:2].to(dev),
                                    obs_mb[5][:2].to(dev), N_T)
     if agg.grad_fn is None:
@@ -316,7 +278,7 @@ def main():
                                     device=dev)
     launches = dict(segment_ops.launches)
     expect = {'segment_mean': ROLLOUT_STEPS * layers,
-              'segment_mean_edge': 0, 'segment_mean_backward': 0}
+              'segment_mean_backward': 0}
     if launches != expect:
         raise AssertionError(f'kernel launches {launches} != {expect}')
     if stats['episodes'] < 1:
@@ -378,8 +340,7 @@ def main():
         train = bench.measure_train_iteration(trainer)  # resets the counts
         train_launches = train['kernel_launches']
         mb_layers = train['update_minibatch_steps'] * layers
-        expect = {'segment_mean': TRAIN_LEN * layers,
-                  'segment_mean_edge': mb_layers,
+        expect = {'segment_mean': TRAIN_LEN * layers + mb_layers,
                   'segment_mean_backward': mb_layers}
         if train_launches != expect:
             raise AssertionError(f'train kernel launches {train_launches} '
@@ -404,7 +365,7 @@ def main():
         eval_r, chans = trainer.eval_agent(0)
         eval_launches = dict(segment_ops.launches)
         expect = {'segment_mean': TRAIN_LEN * layers,
-                  'segment_mean_edge': 0, 'segment_mean_backward': 0}
+                  'segment_mean_backward': 0}
         if eval_launches != expect:
             raise AssertionError(f'eval kernel launches {eval_launches} != '
                                  f'{expect}')
@@ -416,25 +377,24 @@ def main():
 
     phase('total', t_start)
     kernels = [
-        ('segment_mean', 'urban_tpu/ops/pallas/segment_ops.py:108',
+        ('segment_mean',
+         'urban_tpu/ops/pallas/segment_ops.py:61 (segment_mean_pallas) and '
+         'urban_tpu/ops/pallas/segment_ops.py:130 '
+         '(segment_mean_onehot_pallas)',
          launches['segment_mean'] + train_launches['segment_mean']
-         + eval_launches['segment_mean'], max_err, ms[0], plain_ms[0]),
-        ('segment_mean_edge', 'urban_tpu/ops/pallas/segment_ops.py:37',
-         train_launches['segment_mean_edge'], grad_err['segment_mean_edge'],
-         grad_ms['segment_mean_edge'], grad_plain_ms['segment_mean_edge']),
+         + eval_launches['segment_mean'], fwd_err, fwd['trainer']),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
-         train_launches['segment_mean_backward'],
-         grad_err['segment_mean_backward'], grad_ms['segment_mean_backward'],
-         grad_plain_ms['segment_mean_backward']),
+         train_launches['segment_mean_backward'], bwd_err, bwd),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'urban_tpu_torch/csrc/{segment_ops.KERNELS[name][0]}',
         'replaces': replaces, 'launches': n, 'max_abs_err': err,
-        'ms': k_ms, 'plain_ms': p_ms}
-        for name, replaces, n, err, k_ms, p_ms in kernels]}))
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': 'bytes', 'library_ms': t['library_ms']}
+        for name, replaces, n, err, t in kernels]}))
     print(smi_line)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

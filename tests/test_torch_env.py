@@ -8,7 +8,17 @@ episodes as the rollout does. Each step: observation masks and edges, every
 int and bool PlanState field, the failure code and done flags are equal;
 float fields and rewards agree within rtol=1e-5, atol=1e-4 (f32 sums taken
 in another order; coordinates themselves come out bit for bit, since the
-port rounds the reference's fused multiply-adds the same way)."""
+port rounds the reference's fused multiply-adds, square roots and atan2
+the same way).
+
+The rounding of ATen's own CPU math depends on the host: its f32 sqrt
+differs from the correctly rounded root on 19.3% of random inputs with
+torch 2.13.0+cpu on an AMD EPYC host and on 0.64% with torch 2.11.0+cu128
+on an H100 machine's host, while XLA's sqrt is correctly rounded on both.
+The lockstep test passed on one host and failed on the other at step 4
+(a sliver parcel's eqi) until the port took its roots and atan2 from
+geometry.sqrt and geometry.atan2, which give the reference's bits on any
+host; test_cutter_matches_jit_after_four_steps pins that site."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -16,13 +26,17 @@ import pytest
 import torch
 
 from urban_tpu.envs.plan_client import PlanClient
+from urban_tpu.jaxenv import slicer as jsl
 from urban_tpu.jaxenv import state as jstate
 from urban_tpu.jaxenv import step as jstep
 from urban_tpu.jaxenv.rollout import (apply_stage_rewards as j_apply,
                                       broadcast_state as j_broadcast,
                                       make_batch_fns as j_make)
 from urban_tpu_torch.bench import BENCH_CAPS, load_config
+from urban_tpu_torch.host.envs.plan_client import (
+    PlanClient as TorchPlanClient)
 from urban_tpu_torch.torchenv import geometry as tg
+from urban_tpu_torch.torchenv import slicer as tsl
 from urban_tpu_torch.torchenv import state as tstate
 from urban_tpu_torch.torchenv import step as tstep
 from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
@@ -42,7 +56,7 @@ def hlg():
                                    max_steps=cfg.max_sequence_length,
                                    caps=BENCH_CAPS)
     s0_j = jstate.build_initial_state(spec_j, plc_j)
-    plc_t = PlanClient(cfg.objectives_plan, cfg.init_plan)
+    plc_t = TorchPlanClient(cfg.objectives_plan, cfg.init_plan)
     spec_t = tstate.build_env_spec(cfg, plc_t,
                                    max_steps=cfg.max_sequence_length,
                                    caps=BENCH_CAPS)
@@ -155,6 +169,82 @@ def test_lockstep_batched_step(hlg):
                 (-1,) + (1,) * (x.ndim - 1)), i0, x), init_j, nj)
         st = reset_done(init_t, nt)
     assert n_lu_steps >= B * (T - 2)
+
+
+def test_cutter_matches_jit_after_four_steps(hlg):
+    """compute_cutter bit for bit against jax.jit(compute_cutter) at the
+    site where the lockstep test once parted: JAX's state after 4 lockstep
+    steps (seed 0, B=2), env 0, action 922. The cut is the minimum rotated
+    rectangle of a sliver quad; its hull-edge directions divide by a norm,
+    and ATen's f32 sqrt put that norm one ulp off on some hosts."""
+    spec_j, s0_j, _, _ = hlg
+    B = 2
+    j_obs_fn, j_step_fn = j_make(spec_j)
+
+    @jax.jit
+    def j_step(s, a):
+        n, r, d, info = j_step_fn(s, a)
+        return j_apply(spec_j, n, r, info)[0], d
+
+    j_obs = jax.jit(j_obs_fn)
+    sj, init_j = j_broadcast(s0_j, B), j_broadcast(s0_j, B)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        oj = j_obs(sj)
+        lu, stage = np.asarray(oj[6]), np.asarray(oj[8]).argmax(-1)
+        acts = np.zeros((B, 2), np.int32)
+        for b in range(B):
+            if stage[b] == 0 and lu[b].any():
+                acts[b, 0] = rng.choice(np.nonzero(lu[b])[0])
+        if i == 4:
+            break
+        nj, dj = j_step(sj, jnp.asarray(acts))
+        done = jnp.asarray(dj)
+        sj = jax.tree.map(lambda i0, x: jnp.where(
+            done.reshape((-1,) + (1,) * (x.ndim - 1)), i0, x), init_j, nj)
+    assert acts[0, 0] == 922
+    s = jax.tree.map(lambda x: x[0], sj)
+
+    def cutter_inputs(state, a):
+        c = jstep._consts(spec_j)
+        t = jstep.pending_land_use_type(spec_j, state)
+        e = state.edge[a]
+        p = jnp.where(e[0] < spec_j.NP, e[0], e[1]).astype(jnp.int32)
+        q = (e[0] + e[1] - p).astype(jnp.int32) - spec_j.NP - spec_j.NS
+        return (state.poly_ring[p], state.poly_nvert[p], state.pt[q],
+                state.pt, state.pt_alive, jstep._lu_params(spec_j, c, t))
+
+    ins = jax.jit(cutter_inputs)(s, acts[0, 0])
+    out_j = jax.jit(jsl.compute_cutter)(*ins)
+    t_ins = [torch.as_tensor(np.array(x)) for x in ins[:5]]
+    lp = tsl.LuParams(*(torch.as_tensor(np.array(x)) for x in ins[5]))
+    out_t = tsl.compute_cutter(*t_ins, lp)
+    for name, a, b in zip(('S', 'snv', 'cut', 'fail'), out_j, out_t):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+
+
+def _xla_rounding_inputs(name):
+    """Inputs on which ATen's f32 op rounds unlike XLA's on an AMD EPYC
+    host: sqrt(32834) is 181.20153809 (XLA) against 181.20155334 (ATen),
+    and ATen's atan2 differs on ~16% of normal pairs."""
+    rng = np.random.default_rng(0)
+    if name == 'sqrt':
+        x = rng.uniform(0.0, 1e6, 4096).astype(np.float32)
+        x[:3] = (32834.0, 47.0 ** 2 + 175.0 ** 2, 2.0)
+        return (x,)
+    y, x = (rng.standard_normal((2, 4096)) * 300.0).astype(np.float32)
+    y[:6], x[:6] = (0.0, -0.0, 0.0, 5.0, -5.0, 3.0), (2.0, -2.0, -0.0, 0.0,
+                                                     -0.0, 1.0)
+    return y, x
+
+
+@pytest.mark.parametrize('name', ['sqrt', 'atan2'])
+def test_rounding_helpers_match_xla(name):
+    args = _xla_rounding_inputs(name)
+    want = np.asarray(jax.jit(getattr(jnp, {'sqrt': 'sqrt',
+                                            'atan2': 'arctan2'}[name]))(*args))
+    got = getattr(tg, name)(*(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_stage_reward_matches_jax_on_filled_plan(hlg):

@@ -17,8 +17,8 @@ SCRIPT = r'''
 import json, math, os, sys
 import torch
 torch.set_num_threads(1)
-from urban_tpu.utils.config import Config
 from urban_tpu_torch.bench import run_rollout_bench
+from urban_tpu_torch.host.utils.config import Config
 from urban_tpu_torch.rl.trainer import Trainer
 r = run_rollout_bench(num_envs=2, num_steps=5, device='cpu', seed=3)
 

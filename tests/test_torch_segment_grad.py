@@ -1,6 +1,7 @@
 """The gradient of the port's segment mean (urban_tpu_torch.ops.segment_ops:
-SegmentMean, the per-edge forward and the backward) against jax.grad of the
-JAX package's XLA scatter and against autograd of the port's plain version.
+SegmentMean, the counts-returning forward and the backward) against
+jax.grad of the JAX package's XLA scatter and against autograd of the
+port's plain version.
 
 Same inputs, made with numpy from a seed, go to both packages. Tolerance
 1e-5 absolute: f32 sums and quotients of a few O(1) terms, taken in another
@@ -133,7 +134,7 @@ def test_counts_ref_and_backward_ref(case):
 def test_per_edge_wrapper_on_cpu_runs_plain_version():
     h, edges, mask, N, g = _graph('bipartite', seed=3)
     before = dict(segment_ops.launches)
-    out, counts = segment_ops.segment_mean_edge(*_torch(h, edges, mask), N)
+    out, counts = segment_ops.segment_mean_counts(*_torch(h, edges, mask), N)
     ref, ref_counts = segment_ops.segment_mean_counts_ref(
         *_torch(h, edges, mask), N)
     assert torch.equal(out, ref) and torch.equal(counts, ref_counts)
@@ -172,7 +173,7 @@ def test_backward_wrapper_rejects_bad_inputs(name):
 
 @pytest.mark.gpu
 def test_grad_kernels_on_card():
-    """Per-edge forward == plain version and its counts, bitwise repeatable;
+    """Forward kernel == plain version and its counts, bitwise repeatable;
     backward kernel == autograd of the plain version; SegmentMean on a CUDA
     tensor has a grad_fn and launches both kernels (skips without a CUDA
     device; chip_smoke.py runs the same checks at the trainer's shape)."""
@@ -183,8 +184,8 @@ def test_grad_kernels_on_card():
         h, edges, mask, N, g = _graph(case, B=4, E=256, N=100, D=16)
         th, tedges, tmask, tg = _torch(h, edges, mask, g, device=dev)
         before = dict(segment_ops.launches)
-        out, counts = segment_ops.segment_mean_edge(th, tedges, tmask, N)
-        again, _ = segment_ops.segment_mean_edge(th, tedges, tmask, N)
+        out, counts = segment_ops.segment_mean_counts(th, tedges, tmask, N)
+        again, _ = segment_ops.segment_mean_counts(th, tedges, tmask, N)
         ref, ref_counts = segment_ops.segment_mean_counts_ref(th, tedges,
                                                               tmask, N)
         dh = segment_ops.segment_mean_backward(tg, counts, tedges, tmask)
@@ -196,8 +197,8 @@ def test_grad_kernels_on_card():
         assert out_k.grad_fn is not None
         dk, = torch.autograd.grad(out_k, hk, tg)
         torch.cuda.synchronize()
-        assert segment_ops.launches['segment_mean_edge'] == \
-            before['segment_mean_edge'] + 3
+        assert segment_ops.launches['segment_mean'] == \
+            before['segment_mean'] + 3
         assert segment_ops.launches['segment_mean_backward'] == \
             before['segment_mean_backward'] + 2
         assert torch.equal(out, again)

@@ -1,12 +1,14 @@
 """The port's segment mean (urban_tpu_torch.ops.segment_ops) against the JAX
-package's XLA scatter and its two Pallas kernels (interpret mode): the
-one-hot kernel the rollout's node-owner kernel ports, and the per-edge
-kernel the training forward's per-edge kernel ports.
+package's XLA scatter and its two Pallas kernels (interpret mode), the
+one-hot kernel and the per-edge kernel, which the port's one forward
+kernel replaces.
 
 Same inputs, made with numpy from a seed, go to both packages. Tolerance
-1e-5 absolute: f32 sums of a few O(1) terms, taken in another order.
+1e-5 absolute: f32 sums of a few O(1) terms, taken in another order. The
+summation order the kernel keeps, each node's rows added in edge order, is
+pinned bit for bit on the plain version.
 
-JAX is imported inside the test that uses it, so that the card-only test
+JAX is imported inside the tests that use it, so that the card-only test
 collects on a machine without JAX:
     python -m pytest tests/test_torch_segment_ops.py -m gpu --noconftest
 """
@@ -116,22 +118,75 @@ def test_wrapper_rejects_bad_inputs(name):
         segment_ops.segment_mean(h, edges, mask, n)
 
 
+def _edge_order_mean(h, edges, mask, N):
+    """Each node's rows added in edge order in f32, over count + 1e-6."""
+    B, E, D = h.shape
+    s = np.zeros((B, N, D), np.float32)
+    c = np.zeros((B, N), np.float32)
+    for b in range(B):
+        for e in np.flatnonzero(mask[b]):
+            for n in edges[b, e]:
+                if 0 <= n < N:
+                    s[b, n] += h[b, e]
+                    c[b, n] += 1
+    return s / (c[..., None] + np.float32(1e-6)), c
+
+
+def test_plain_version_sums_in_edge_order():
+    """On a bipartite graph each node is an endpoint of one kind only, so
+    the plain version's two index_add_ passes add its rows in edge order:
+    the order the forward kernel keeps, and so the bits it must give."""
+    h, edges, mask, N = _graph('bipartite', B=2, E=3000, N=1344, D=16,
+                               seed=4)
+    out, counts = segment_ops.segment_mean_counts_ref(
+        torch.as_tensor(h), torch.as_tensor(edges), torch.as_tensor(mask), N)
+    want, want_counts = _edge_order_mean(h, edges, mask, N)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_counts_match_pallas(case):
+    """The per-node counts against the interpreted Pallas per-edge kernel:
+    with every row of h equal to 1 it returns count / (count + 1e-6)."""
+    import jax.numpy as jnp
+    from urban_tpu.ops.pallas import segment_ops as jseg
+    h, edges, mask, N = _graph(case, seed=5)
+    ones = np.ones_like(h)
+    _, counts = segment_ops.segment_mean_counts_ref(
+        torch.as_tensor(ones), torch.as_tensor(edges), torch.as_tensor(mask),
+        N)
+    pallas = np.asarray(jseg.segment_mean_pallas(
+        jnp.asarray(ones), jnp.asarray(edges), jnp.asarray(mask), N,
+        interpret=True))
+    want = (counts / (counts + 1e-6)).numpy()
+    np.testing.assert_array_equal(pallas, np.broadcast_to(
+        want[..., None], pallas.shape))
+
+
 @pytest.mark.gpu
 def test_kernel_on_card():
-    """CUDA kernel == plain version on the card, bitwise repeatable (skips
-    without a CUDA device; chip_smoke.py runs the same check at the
-    rollout's shape)."""
+    """Forward kernel at the trainer's graph size (E=3000, N=1344, D=16) on
+    a bipartite graph: the CPU plain version's bits and counts, within
+    ATOL of the plain version on the card, bitwise repeatable, and the
+    kernel the no-gradient segment_mean runs (skips without a CUDA device;
+    chip_smoke.py runs the same checks at all three main-path shapes)."""
     if not torch.cuda.is_available():
         pytest.skip('requires a CUDA device')
-    h, edges, mask, N = _graph('masked_sentinel', B=4, E=256, N=100, D=16)
+    h, edges, mask, N = _graph('masked_sentinel', B=8, E=3000, N=1344, D=16)
     dev = torch.device('cuda')
-    args = (torch.as_tensor(h, device=dev), torch.as_tensor(edges, device=dev),
-            torch.as_tensor(mask, device=dev))
+    cpu = (torch.as_tensor(h), torch.as_tensor(edges), torch.as_tensor(mask))
+    args = tuple(x.to(dev) for x in cpu)
     before = segment_ops.launches['segment_mean']
-    out = segment_ops.segment_mean(*args, N)
-    again = segment_ops.segment_mean(*args, N)
+    out, counts = segment_ops.segment_mean_counts(*args, N)
+    again, _ = segment_ops.segment_mean_counts(*args, N)
+    no_grad = segment_ops.segment_mean(*args, N)
     ref = segment_ops.segment_mean_ref(*args, N)
+    cpu_out, cpu_counts = segment_ops.segment_mean_counts_ref(*cpu, N)
     torch.cuda.synchronize()
-    assert segment_ops.launches['segment_mean'] == before + 2
-    assert torch.equal(out, again)
+    assert segment_ops.launches['segment_mean'] == before + 3
+    assert torch.equal(out, again) and torch.equal(out, no_grad)
+    assert torch.equal(out.cpu(), cpu_out)
+    assert torch.equal(counts.cpu(), cpu_counts)
     assert float((out - ref).abs().max()) <= ATOL

@@ -24,6 +24,7 @@ from urban_tpu.jaxenv.rollout import Trajectory as JaxTrajectory
 from urban_tpu.models import encoder as jenc
 from urban_tpu.rl.train_tpu import TPUTrainer
 from urban_tpu.utils.config import Config
+from urban_tpu_torch.host.utils.config import Config as TorchConfig
 from urban_tpu_torch.models.convert import load_flax_params, to_flax_params
 from urban_tpu_torch.rl.trainer import Trainer
 from urban_tpu_torch.torchenv.rollout import rollout
@@ -46,7 +47,7 @@ def test_trainer_update_matches_tpu_trainer(tmp_path, monkeypatch):
     monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
     jt = TPUTrainer(Config('hlg', 0, root_dir=str(tmp_path / 'jax')),
                     num_envs=2, rollout_len=STEPS, eval_envs=2)
-    tt = Trainer(Config('hlg', 0, root_dir=str(tmp_path / 'torch')),
+    tt = Trainer(TorchConfig('hlg', 0, root_dir=str(tmp_path / 'torch')),
                  num_envs=2, rollout_len=STEPS, eval_envs=2, device='cpu')
     assert (tt.spec.num_features, tt.spec.NE) == (jt.spec.num_features,
                                                    jt.spec.NE) == (1344, 3000)
@@ -87,6 +88,6 @@ def test_trainer_update_matches_tpu_trainer(tmp_path, monkeypatch):
                                           ('num_devices', 4)])
 def test_run_training_refuses_what_is_not_ported(option, value, tmp_path):
     from urban_tpu_torch.rl.trainer import run_training
-    cfg = Config('hlg', 0, root_dir=str(tmp_path))
+    cfg = TorchConfig('hlg', 0, root_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         run_training(cfg, 1, 2, device='cpu', **{option: value})

@@ -3,8 +3,9 @@
 The batched environment (torchenv), the SGNN actor-critic (models), the
 PPO trainer (rl) and the hand-written Hopper kernels (ops, csrc) beside the
 JAX reference package.
-The port imports torch and never jax; it shares urban_tpu's host tier
-(numpy scenario loading and the exact host engine).
+The port imports torch and never jax, and nothing of urban_tpu: the numpy
+host tier it needs (scenario loading, the plan tables, the exact host
+geometry, the run configuration) is its own copy in ``host``.
 """
 
 __version__ = '0.1.0'

@@ -21,8 +21,8 @@ from types import SimpleNamespace
 
 import torch
 
-from urban_tpu.envs.plan_client import PlanClient
-from urban_tpu.utils.io import load_yaml
+from urban_tpu_torch.host.envs.plan_client import PlanClient
+from urban_tpu_torch.host.utils.io import load_yaml
 from urban_tpu_torch.models.model import create_model
 from urban_tpu_torch.torchenv.rollout import (broadcast_state, failure_causes,
                                               overflow_failures, rollout_bench)
@@ -34,7 +34,7 @@ BENCH_CAPS = dict(KV=20, NP=256, NS=512, NPT=320, NE=2304)
 
 def load_config(name: str) -> SimpleNamespace:
     """The experiment config fields the slice reads, with the defaults of
-    urban_tpu.utils.config.Config (which also creates run directories;
+    host.utils.config.Config (which also creates run directories;
     this loader writes nothing)."""
     cfg = load_yaml(f'urban_tpu/cfg/**/{name}.yaml')
     return SimpleNamespace(
@@ -125,7 +125,7 @@ def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                  seed: int = 0, eval_envs: int = 16, root_dir: str = None):
     """The HLG PPO trainer at the trainer's own capacities; its run logs
     go under root_dir (default: the temp directory)."""
-    from urban_tpu.utils.config import Config
+    from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.rl.trainer import Trainer
     set_precision_flags()
     root_dir = root_dir or os.path.join(tempfile.gettempdir(),

@@ -10,7 +10,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from urban_tpu import city_config
+from urban_tpu_torch.host import city_config
 from urban_tpu_torch.models.encoder import SGNNStateEncoder
 from urban_tpu_torch.models.policy import (PolicyHead, categorical_entropy,
                                            categorical_log_prob,

@@ -4,13 +4,14 @@ gradient.
 
 * ``segment_mean`` is the wrapper the encoder calls. Where autograd needs a
   gradient (grad mode on and ``h_edges.requires_grad``) it goes through
-  ``SegmentMean``; otherwise (rollout, eval) it runs the node-owner kernel
-  ``csrc/segment_mean.cu`` (the port of ``segment_mean_onehot_pallas``).
+  ``SegmentMean``; otherwise (rollout, collect, eval) it runs
+  ``segment_mean_counts`` and drops the counts.
+* ``segment_mean_counts`` returns the mean and the per-node counts through
+  the forward kernel ``csrc/segment_mean.cu``, the port of both Pallas
+  kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``).
 * ``SegmentMean`` is the autograd function: its forward is
-  ``segment_mean_edge`` (``csrc/segment_mean_edge.cu``, the port of
-  ``segment_mean_pallas``, which also returns the per-node counts), its
-  backward ``segment_mean_backward`` (``csrc/segment_mean_backward.cu``, a
-  gather with no TPU counterpart).
+  ``segment_mean_counts``, its backward ``segment_mean_backward``
+  (``csrc/segment_mean_backward.cu``, a gather with no TPU counterpart).
 * Each wrapper launches its hand-written Hopper kernel on a CUDA tensor (or
   raises) and runs its plain PyTorch version on a CPU tensor:
   ``segment_mean_ref`` / ``segment_mean_counts_ref`` (counterparts of
@@ -52,10 +53,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source in csrc/, {exported C function: argtypes})
 KERNELS = {
     'segment_mean': ('segment_mean.cu', {
-        'segment_mean_f32': [_P, _P, _P, _P, _I, _I, _I, _I, _P]}),
-    'segment_mean_edge': ('segment_mean_edge.cu', {
-        'segment_mean_edge_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        'segment_mean_edge_columns': [_I, _I]}),
+        'segment_mean_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        'segment_mean_fits': [_I, _I]}),
     'segment_mean_backward': ('segment_mean_backward.cu', {
         'segment_mean_backward_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P]}),
@@ -240,29 +239,32 @@ def segment_mean_backward_ref(grad_out: torch.Tensor, counts: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def segment_mean_edge(h_edges: torch.Tensor, edges: torch.Tensor,
-                      edge_mask: torch.Tensor, num_nodes: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment mean and per-node counts by per-edge accumulation: the
-    forward of SegmentMean. CUDA tensors run csrc/segment_mean_edge.cu,
-    CPU tensors the plain version (without a gradient either way)."""
+def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
+                        edge_mask: torch.Tensor, num_nodes: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment mean (B, N, D) and per-node counts (B, N), without a
+    gradient. CUDA tensors run csrc/segment_mean.cu, CPU tensors the plain
+    version."""
     _check(h_edges, edges, edge_mask, num_nodes)
     dev = _device(h_edges)
     N = int(num_nodes)
     if dev.type == 'cpu':
         with torch.no_grad():
             return segment_mean_counts_ref(h_edges, edges, edge_mask, N)
+    if h_edges.data_ptr() % 16 or edges.data_ptr() % 8:
+        raise ValueError('segment_mean: h_edges must be 16-byte and edges '
+                         '8-byte aligned')
     B, E, D = h_edges.shape
     with torch.cuda.device(dev):
-        if load_library('segment_mean_edge').segment_mean_edge_columns(N, D) < 1:
-            raise ValueError(f'segment_mean_edge: a table of {N} nodes does '
-                             f'not fit in shared memory even one column '
-                             f'wide')
+        if not load_library('segment_mean').segment_mean_fits(N, E):
+            raise ValueError(f'segment_mean: a graph of {N} nodes and {E} '
+                             f'edges does not fit in one block\'s shared '
+                             f'memory')
         out = torch.empty((B, N, D), dtype=torch.float32, device=dev)
         counts = torch.empty((B, N), dtype=torch.float32, device=dev)
-        _launch('segment_mean_edge', 'segment_mean_edge_f32',
-                h_edges.data_ptr(), edges.data_ptr(), edge_mask.data_ptr(),
-                out.data_ptr(), counts.data_ptr(), B, E, N, D, _stream(dev))
+        _launch('segment_mean', 'segment_mean_f32', h_edges.data_ptr(),
+                edges.data_ptr(), edge_mask.data_ptr(), out.data_ptr(),
+                counts.data_ptr(), B, E, N, D, _stream(dev))
     return out, counts
 
 
@@ -297,13 +299,14 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
 
 
 class SegmentMean(torch.autograd.Function):
-    """Segment mean with a gradient in h_edges: forward segment_mean_edge,
+    """Segment mean with a gradient in h_edges: forward segment_mean_counts,
     backward segment_mean_backward (kernels on CUDA, plain versions on the
     CPU)."""
 
     @staticmethod
     def forward(ctx, h_edges, edges, edge_mask, num_nodes):
-        out, counts = segment_mean_edge(h_edges, edges, edge_mask, num_nodes)
+        out, counts = segment_mean_counts(h_edges, edges, edge_mask,
+                                          num_nodes)
         ctx.save_for_backward(edges, edge_mask, counts)
         return out
 
@@ -323,18 +326,8 @@ def segment_mean(h_edges: torch.Tensor, edges: torch.Tensor,
     h_edges (B, E, D) float32, edges (B, E, 2) int32, edge_mask (B, E) bool,
     all contiguous on one device; D in SUPPORTED_DIMS. Returns (B, N, D)
     float32, with a grad_fn where h_edges requires a gradient (SegmentMean).
-    Without one, CUDA tensors run the node-owner kernel and CPU tensors the
+    Without one, CUDA tensors run the forward kernel and CPU tensors the
     plain version."""
-    _check(h_edges, edges, edge_mask, num_nodes)
     if torch.is_grad_enabled() and h_edges.requires_grad:
         return SegmentMean.apply(h_edges, edges, edge_mask, int(num_nodes))
-    dev = _device(h_edges)
-    if dev.type == 'cpu':
-        return segment_mean_ref(h_edges, edges, edge_mask, num_nodes)
-    B, E, D = h_edges.shape
-    out = torch.empty((B, int(num_nodes), D), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch('segment_mean', 'segment_mean_f32', h_edges.data_ptr(),
-                edges.data_ptr(), edge_mask.data_ptr(), out.data_ptr(),
-                B, E, int(num_nodes), D, _stream(dev))
-    return out
+    return segment_mean_counts(h_edges, edges, edge_mask, num_nodes)[0]

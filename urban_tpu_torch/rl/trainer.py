@@ -5,12 +5,11 @@ One iteration: a batched rollout of num_envs x rollout_len steps with the
 trajectory kept on the device (``collect``), the success weights and GAE,
 then ``num_optim_epoch`` shuffled epochs of minibatch PPO steps
 (``update``: a forward and a backward of the SGNN per minibatch, through
-the per-edge segment-mean kernel and its backward kernel on a CUDA
-device), then greedy evaluation episodes with best-plan tracking
-(``eval_agent``). The minibatch permutation comes from
-``np.random.default_rng(seed + iteration)``, as in the JAX trainer, so
-both take the same minibatches; the rollout and sampling noise comes from
-an explicit ``torch.Generator``.
+the segment-mean kernel and its backward kernel on a CUDA device), then
+greedy evaluation episodes with best-plan tracking (``eval_agent``). The
+minibatch permutation comes from ``np.random.default_rng(seed +
+iteration)``, as in the JAX trainer, so both take the same minibatches;
+the rollout and sampling noise comes from an explicit ``torch.Generator``.
 
     python -m urban_tpu_torch.rl.trainer --cfg hlg --iterations 1 \
         --num_envs 2 --device cpu
@@ -34,9 +33,9 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from urban_tpu.envs.plan_client import PlanClient
-from urban_tpu.utils.config import Config
-from urban_tpu.utils.logger import create_logger
+from urban_tpu_torch.host.envs.plan_client import PlanClient
+from urban_tpu_torch.host.utils.config import Config
+from urban_tpu_torch.host.utils.logger import create_logger
 from urban_tpu_torch.models.model import create_model, init_like_flax
 from urban_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update_epoch
 from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,

@@ -26,6 +26,8 @@ module under ``torch.compile``, which would fuse them.
 """
 from __future__ import annotations
 
+import struct
+
 import torch
 
 BIG = 1e30
@@ -57,8 +59,100 @@ def set_at(x: torch.Tensor, i, value) -> torch.Tensor:
 
 def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, sqrt(sum(x*x)) as jnp.linalg.norm."""
-    n = torch.sqrt(dot2(x, x))
+    n = sqrt(dot2(x, x))
     return n[..., None] if keepdim else n
+
+
+def sqrt(x):
+    """Square root rounded once to the nearest f32, as the reference's
+    compiled code computes it (one hardware sqrt). The card's f32 sqrt is
+    correctly rounded; ATen's CPU one is not on every host (1 ulp off on
+    ~19% of inputs on an AMD EPYC), so the CPU takes it in f64: the root of
+    an f32 lies at least 2**-49 (relative) from any f32 rounding boundary,
+    so an f64 root a few f64 ulps off still rounds to the correctly rounded
+    f32 root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _f32(v: float) -> float:
+    return struct.unpack('f', struct.pack('f', v))[0]
+
+
+# fdlibm's single-precision atan (glibc sysdeps/ieee754/flt-32/s_atanf.c
+# and e_atan2f.c), with the decimal literals that the C code compiles.
+# Argument reduction by interval of x >= 0 (breaks at 7/16, 11/16, 19/16,
+# 39/16): xr = (a x - b) / (c + d x), atan(x) = hi + (lo + atan(xr)). Each
+# row gives the same f32 operations as the C code's own expression for its
+# interval: x, (2x - 1) / (2 + x), (x - 1) / (x + 1), (x - 1.5) /
+# (1 + 1.5x), -1 / x; hi = lo = 0 turns its final step into x - x s.
+_ATAN_BREAKS = (0.4375, 0.6875, 1.1875, 2.4375)
+_ATAN_ROWS = tuple(tuple(_f32(v) for v in row) for row in (
+    # a,   b,   c,   d,   hi,              lo
+    (1.0, 0.0, 1.0, 0.0, 0.0, 0.0),
+    (2.0, 1.0, 2.0, 1.0, 4.6364760399e-01, 5.0121582440e-09),
+    (1.0, 1.0, 1.0, 1.0, 7.8539812565e-01, 3.7748947079e-08),
+    (1.0, 1.5, 1.0, 1.5, 9.8279368877e-01, 3.4473217170e-08),
+    (0.0, 1.0, 0.0, 1.0, 1.5707962513e+00, 7.5497894159e-08)))
+_AT = tuple(_f32(v) for v in (
+    3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+    -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+    6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+    -3.6531571299e-02, 1.6285819933e-02))
+_ATAN_BIG = _f32(_ATAN_ROWS[4][4] + _ATAN_ROWS[4][5])   # x >= 2**25
+_PI_O_2 = _f32(1.5707963705e+00)
+_PI = _f32(3.1415927410e+00)
+_PI_LO = _f32(-8.7422776573e-08)
+_atan_tables = {}
+
+
+def _atan_table(device):
+    """(breaks, rows) as tensors on `device`, made once per device."""
+    if device not in _atan_tables:
+        _atan_tables[device] = (
+            torch.tensor(_ATAN_BREAKS, dtype=torch.float32, device=device),
+            torch.tensor(_ATAN_ROWS, dtype=torch.float32, device=device))
+    return _atan_tables[device]
+
+
+def _atanf_nonneg(x):
+    """fdlibm atanf for finite x >= 0, each f32 operation as the C code
+    writes it (no contraction)."""
+    breaks, rows = _atan_table(x.device)
+    a, b, c, d, hi, lo = rows[(x[..., None] >= breaks).sum(-1)].unbind(-1)
+    xr = (a * x - b) / (c + d * x)
+    z = xr * xr
+    w = z * z
+    at = _AT
+    s1 = z * (at[0] + w * (at[2] + w * (at[4] + w * (at[6] + w * (
+        at[8] + w * at[10])))))
+    s2 = w * (at[1] + w * (at[3] + w * (at[5] + w * (at[7] + w * at[9]))))
+    out = hi - ((xr * (s1 + s2) - lo) - xr)
+    return torch.where(x >= 33554432.0, _ATAN_BIG, out)
+
+
+def _negative(x):
+    """Sign bit of x, -0.0 included, from comparisons alone (vmap has no
+    batching rule for a dtype view)."""
+    return (x < 0) | ((x == 0) & (1.0 / x < 0))
+
+
+def atan2(y, x):
+    """atan2 of finite f32 tensors (y / x not subnormal), bit for bit the
+    reference's compiled code: XLA's CPU backend calls the host libm's
+    atan2f, which is fdlibm's (glibc 2.36) and not correctly rounded, and
+    ATen's atan2 rounds another way on ~16% of inputs. This is that
+    algorithm in f32 tensor ops, so it gives the same bits on the CPU and
+    on the card. (fdlibm's branches for |y / x| beyond 2**60 or below
+    2**-60 give the same bits as the general path and are left out; its
+    third and fourth quadrants negate its first and second exactly.)"""
+    x_neg, y_neg = _negative(x), _negative(y)
+    z = _atanf_nonneg(torch.abs(y / x))
+    r = torch.where(x_neg, _PI - (z - _PI_LO), z)
+    r = torch.where(x == 0, _PI_O_2, r)
+    r = torch.where(y == 0, torch.where(x_neg, _PI, 0.0), r)
+    return torch.where(y_neg, -r, r)
 
 
 def fma(a, b, c):
@@ -338,7 +432,7 @@ def convex_hull_masked(pts, mask, eps: float = 1e-7):
     on_hull = valid.any(dim=1) & mask
     nh = on_hull.sum()
     c = torch.where(on_hull[:, None], pts, 0.0).sum(0) / torch.clamp_min(nh, 1)
-    ang = torch.atan2(pts[:, 1] - c[1], pts[:, 0] - c[0])
+    ang = atan2(pts[:, 1] - c[1], pts[:, 0] - c[0])
     key = torch.where(on_hull, ang, BIG)
     smaller = (key[None, :] < key[:, None]) | \
         ((key[None, :] == key[:, None]) & (idk[None, :] < idk[:, None]))

@@ -44,7 +44,7 @@ def abs_angle_deg(v1, v2):
     """|signed angle| between two vectors in degrees (host get_angles_deg)."""
     dot = jg.fma(v1[0], v2[0], v1[1] * v2[1])
     det = jg.cross(v1[0], v1[1], v2[0], v2[1])
-    return torch.rad2deg(torch.atan2(torch.abs(det), dot))
+    return torch.rad2deg(jg.atan2(torch.abs(det), dot))
 
 
 def is_hv(a, b):
@@ -83,7 +83,7 @@ def mrr_of(pts):
     amin = area.amin()
     flip = (u[:, 1] < 0) | ((u[:, 1] == 0) & (u[:, 0] < 0))
     uc = torch.where(flip[:, None], -u, u)
-    theta = torch.atan2(uc[:, 1], uc[:, 0])
+    theta = jg.atan2(uc[:, 1], uc[:, 0])
     tied = ok & (area <= amin * (1.0 + MRR_REL_TOL))
     k = torch.argmin(torch.where(tied, theta, jg.BIG))
     any_ok = ok.any()
@@ -443,7 +443,7 @@ def simplify_by_angle(ring, nv, deg_tol: float = DEG_TOL):
     v_out = nxt - ring
     dot = jg.dot2(v_in, v_out)
     det = jg.cross(v_in[:, 0], v_in[:, 1], v_out[:, 0], v_out[:, 1])
-    ang = torch.rad2deg(torch.atan2(torch.abs(det), dot))
+    ang = torch.rad2deg(jg.atan2(torch.abs(det), dot))
     keep = m & (ang > deg_tol)
     n_keep = keep.sum()
     keep = torch.where(n_keep >= 3, keep, m)

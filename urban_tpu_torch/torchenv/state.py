@@ -23,9 +23,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from urban_tpu import city_config
-from urban_tpu.envs.plan_client import PlanClient
-from urban_tpu.geometry.base import LINE, POINT, POLY
+from urban_tpu_torch.host import city_config
+from urban_tpu_torch.host.envs.plan_client import PlanClient
+from urban_tpu_torch.host.geometry.base import LINE, POINT, POLY
 
 
 @dataclass(frozen=True)
@@ -316,8 +316,8 @@ def build_initial_state(spec: EnvSpec, plc: PlanClient,
         raise ValueError('Initial plan exceeds slot capacities.')
 
     # feature-point incidence (exact host geometry)
-    from urban_tpu.geometry import ops as gops
-    from urban_tpu.geometry.base import Geometry
+    from urban_tpu_torch.host.geometry import ops as gops
+    from urban_tpu_torch.host.geometry.base import Geometry
     incidence = np.zeros((spec.num_features, NPT), dtype=bool)
     pt_geoms = [(k, Geometry(POINT, pt[k][None, :]))
                 for k in range(NPT) if pt_alive[k]]

@@ -51,7 +51,7 @@ from typing import Tuple
 import torch
 from torch.func import vmap
 
-from urban_tpu import city_config
+from urban_tpu_torch.host import city_config
 from urban_tpu_torch.torchenv import geometry as jg
 from urban_tpu_torch.torchenv import slicer as jsl
 from urban_tpu_torch.torchenv.state import (FIELD_NAMES, EnvSpec, PlanState,
@@ -284,8 +284,8 @@ def ring_shape_metrics(ring, nv):
     i = torch.argmin(rect_area)
     mrr_perim = 2.0 * (w[i] + h[i])
     rect = area / mrr_area
-    eqi = torch.sqrt(area / mrr_area) * (mrr_perim / torch.clamp_min(perim, 1e-9))
-    sc = (4.0 * torch.sqrt(area) / torch.clamp_min(perim, 1e-9)) ** 2
+    eqi = jg.sqrt(area / mrr_area) * (mrr_perim / torch.clamp_min(perim, 1e-9))
+    sc = (4.0 * jg.sqrt(area) / torch.clamp_min(perim, 1e-9)) ** 2
     ok = (area > 1e-9) & (perim > 1e-9)
     return (torch.where(ok, rect, 0.5), torch.where(ok, eqi, 0.5),
             torch.where(ok, sc, 0.5))
@@ -918,10 +918,10 @@ def life_circle_reward(spec: EnvSpec, state: PlanState) -> torch.Tensor:
     else:
         efficiency = torch.where(is_res, life10, 0.0).sum() / \
             torch.clamp_min(is_res.sum(), 1)
-    ref_dist = torch.sqrt(torch.tensor(spec.grid_cols ** 2
-                                       + spec.grid_rows ** 2,
-                                       dtype=torch.float32,
-                                       device=areas.device))
+    ref_dist = jg.sqrt(torch.tensor(spec.grid_cols ** 2
+                                    + spec.grid_rows ** 2,
+                                    dtype=torch.float32,
+                                    device=areas.device))
     decentral = torch.where(pair_cnt > 0,
                             pair_acc / torch.clamp_min(pair_cnt, 1.0),
                             0.0) / ref_dist
