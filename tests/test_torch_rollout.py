@@ -1,12 +1,14 @@
 """The port's batched HLG rollout and one PPO train_iteration of its
 trainer on the CPU, in a fresh interpreter: the test process has jax
 loaded (conftest.py), so only a subprocess can show that urban_tpu_torch
-runs without importing jax, flax or optax."""
+runs without importing jax, flax or optax. Also: the bench helpers put
+their results on the card unless asked for the CPU."""
 import json
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -79,3 +81,20 @@ def test_cpu_rollout_without_jax(tmp_path):
     assert all(_finite(v) for v in t['losses'].values()), t['losses']
     assert t['checkpoint_round_trip']
     assert t['optimizer_steps'] > 0 and t['start_iteration'] == 1
+
+
+def test_bench_helpers_default_to_the_card():
+    """bench.setup and bench.make_model without a device put the state and
+    the model on the card; without a card they raise rather than quietly
+    give a CPU run."""
+    from urban_tpu_torch import bench
+    cfg, spec, _ = bench.setup('hlg', {}, 'cpu')
+    calls = {'setup': lambda: bench.setup('hlg', {})[2].done,
+             'make_model': lambda: next(bench.make_model(cfg,
+                                                         spec).parameters())}
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            assert call().device.type == 'cuda', name
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()

@@ -161,7 +161,20 @@ def _bad_backward_inputs():
                               ValueError),
         'grad_not_contiguous': (g.transpose(0, 1).contiguous().transpose(0, 1),
                                 counts, edges, mask, ValueError),
+        # contiguous, but 4 bytes past a 16-byte boundary: the kernel reads
+        # grad_out as float4
+        'grad_not_aligned': (_misaligned(g), counts, edges, mask, ValueError),
     }
+
+
+def _misaligned(t):
+    """A contiguous float32 copy of t that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 3, dtype=t.dtype)
+    off = (1 - flat.data_ptr() // 4) % 4
+    out = flat[off:off + t.numel()].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
 
 
 @pytest.mark.parametrize('name', sorted(_bad_backward_inputs()))
@@ -171,17 +184,62 @@ def test_backward_wrapper_rejects_bad_inputs(name):
         segment_ops.segment_mean_backward(g, counts, edges, mask)
 
 
+# the largest N the forward kernel takes: (3 N + 1 + 4 E) ints of shared
+# memory and one per warp of its 512 threads within one block's limit
+# (csrc/segment_mean.cu, shared_bytes and segment_mean_fits), at E = 0
+FORWARD_MAX_NODES = (segment_ops.SHARED_BYTES_PER_BLOCK // 4 - 1 - 16) // 3
+
+
+@pytest.mark.parametrize('width', segment_ops.SUPPORTED_DIMS)
+def test_backward_plan_covers_every_graph_the_forward_takes(width):
+    """For every N the forward accepts: the tile is a multiple of 4
+    columns that divides D, the shared memory is the tile's N rows and
+    within one block's limit, and the gather path (0 bytes, full rows) is
+    taken exactly where not even 4 columns of N rows fit. Blocks have 512
+    threads where two of them share an SM (as at the trainer's and the
+    rollout's graphs), else 1024."""
+    gather = []
+    for n in range(1, FORWARD_MAX_NODES + 1):
+        plan = segment_ops.backward_plan(n, width)
+        assert plan.tile % 4 == 0 and width % plan.tile == 0
+        assert plan.shared_bytes <= segment_ops.SHARED_BYTES_PER_BLOCK
+        staged = plan.shared_bytes > 0
+        two_per_sm = 2 * (plan.shared_bytes + 1024) <= 233472
+        assert plan.threads == (512 if staged and two_per_sm else 1024)
+        if staged:
+            assert plan.shared_bytes == n * plan.tile * 4
+        else:
+            assert plan.tile == width and plan.shared_bytes == 0
+            gather.append(n)
+        assert staged == (n * 4 * 4 <= segment_ops.SHARED_BYTES_PER_BLOCK)
+    assert gather == list(range(14529, FORWARD_MAX_NODES + 1))
+    if width == 16:
+        assert segment_ops.backward_plan(1344, 16) == (16, 86016, 512)
+        assert segment_ops.backward_plan(1088, 16) == (16, 69632, 512)
+    if width == 64:
+        assert segment_ops.backward_plan(4096, 64) == (8, 131072, 1024)
+
+
 @pytest.mark.gpu
 def test_grad_kernels_on_card():
     """Forward kernel == plain version and its counts, bitwise repeatable;
-    backward kernel == autograd of the plain version; SegmentMean on a CUDA
-    tensor has a grad_fn and launches both kernels (skips without a CUDA
-    device; chip_smoke.py runs the same checks at the trainer's shape)."""
+    backward kernel == the plain backward bit for bit, with full rows (D=16),
+    column tiles (D=64) and the gather path (N past what shared memory
+    holds); SegmentMean on a CUDA tensor has a grad_fn and launches both
+    kernels (skips without a CUDA device; chip_smoke.py runs the same checks
+    at the main paths' shapes)."""
     if not torch.cuda.is_available():
         pytest.skip('requires a CUDA device')
     dev = torch.device('cuda')
-    for case in CASES:
-        h, edges, mask, N, g = _graph(case, B=4, E=256, N=100, D=16)
+    # (case, N, D): full rows at D=16, four tiles of 16 columns at D=64,
+    # and the gather path at N=15000
+    shapes = [(case, 100, 16) for case in CASES] + [('bipartite', 1000, 64),
+                                                    ('bipartite', 15000, 16)]
+    for case, n_nodes, width in shapes:
+        h, edges, mask, N, g = _graph(case, B=4, E=256, N=n_nodes, D=width)
+        plan = segment_ops.backward_plan(N, width)
+        assert (plan.shared_bytes > 0) == (N < 15000)
+        assert (plan.tile < width) == (width == 64)
         th, tedges, tmask, tg = _torch(h, edges, mask, g, device=dev)
         before = dict(segment_ops.launches)
         out, counts = segment_ops.segment_mean_counts(th, tedges, tmask, N)
@@ -189,9 +247,6 @@ def test_grad_kernels_on_card():
         ref, ref_counts = segment_ops.segment_mean_counts_ref(th, tedges,
                                                               tmask, N)
         dh = segment_ops.segment_mean_backward(tg, counts, tedges, tmask)
-        hr = th.clone().requires_grad_()
-        dref, = torch.autograd.grad(
-            segment_ops.segment_mean_ref(hr, tedges, tmask, N), hr, tg)
         hk = th.clone().requires_grad_()
         out_k = segment_ops.segment_mean(hk, tedges, tmask, N)
         assert out_k.grad_fn is not None
@@ -204,5 +259,15 @@ def test_grad_kernels_on_card():
         assert torch.equal(out, again)
         assert torch.equal(counts, ref_counts)
         assert float((out - ref).abs().max()) <= ATOL
-        assert float((dh - dref).abs().max()) <= ATOL
+        assert torch.equal(dh, segment_ops.segment_mean_backward_ref(
+            tg, counts, tedges, tmask))
         assert torch.equal(dk, dh)
+        # every other tile that fits, and the gather path, at either block
+        # size, give the same bits
+        tiles = [(t, N * t * 4) for t in (4, 8, 16, 32, 64) if width % t == 0
+                 and N * t * 4 <= segment_ops.SHARED_BYTES_PER_BLOCK]
+        for tile, size in tiles + [(width, 0)]:
+            for threads in (512, 1024):
+                other = segment_ops.BackwardPlan(tile, size, threads)
+                assert torch.equal(segment_ops.segment_mean_backward(
+                    tg, counts, tedges, tmask, other), dh), other

@@ -59,17 +59,19 @@ def _scenario(name: str, caps: tuple):
     return cfg, spec, build_initial_state(spec, plc)
 
 
-def setup(name: str = 'hlg', caps=None, device='cpu'):
-    """(cfg, spec, initial state on `device`) for a scenario; the host
-    build runs once per process."""
+def setup(name: str = 'hlg', caps=None, device='cuda'):
+    """(cfg, spec, initial state on `device`: the card unless the caller
+    asks for the CPU) for a scenario; the host build runs once per
+    process."""
     caps = BENCH_CAPS if caps is None else caps
     cfg, spec, state = _scenario(name, tuple(sorted(caps.items())))
     return cfg, spec, state.map(lambda x: x.to(device))
 
 
-def make_model(cfg, spec, seed: int = 0, device='cpu'):
+def make_model(cfg, spec, seed: int = 0, device='cuda'):
     """The SGNN actor-critic at the config's widths, random weights from
-    `seed`, graph caps from the env spec."""
+    `seed`, graph caps from the env spec, on `device` (the card unless the
+    caller asks for the CPU)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = create_model(cfg, spec.num_features, spec.NE)
@@ -83,6 +85,16 @@ def set_precision_flags() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def build_kernels(device) -> None:
+    """Build and load the kernel libraries before anything is timed: nvcc
+    runs on a library's first use, which is set-up, not a step's or an
+    iteration's time."""
+    if torch.device(device).type == 'cuda':
+        from urban_tpu_torch.ops import segment_ops
+        for name in segment_ops.build_libraries():
+            segment_ops.load_library(name)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
@@ -94,6 +106,7 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
     fresh; returns env steps/s and the episode statistics."""
     set_precision_flags()
     device = torch.device(device)
+    build_kernels(device)
     cfg, spec, init_state = setup('hlg', BENCH_CAPS, device)
     model = make_model(cfg, spec, seed, device)
     start = broadcast_state(
@@ -141,6 +154,7 @@ def measure_train_iteration(trainer) -> dict:
     memory."""
     from urban_tpu_torch.ops import segment_ops
     device = trainer.device
+    build_kernels(device)
     if device.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(device)
     segment_ops.reset_launches()
@@ -195,6 +209,7 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     device = torch.device(device)
     if device.type != 'cuda':
         raise ValueError('profile_rollout measures a CUDA device')
+    build_kernels(device)
     cfg, spec, init_state = setup('hlg', BENCH_CAPS, device)
     model = make_model(cfg, spec, seed, device)
     init_b = broadcast_state(init_state, num_envs)

@@ -7,7 +7,8 @@ function and the memory bound.
 ``--root`` imports ``urban_tpu_torch`` from another checkout (an older
 commit unpacked with ``git archive``), so that two trees can be timed on one
 card, in turns, with the same inputs. One JSON line per (shape, kernel),
-then the forward kernel at every width on the trainer's graph.
+then the forward and the backward kernel at every width on the trainer's
+graph, then the backward at each shape with every column tile that fits.
 ``chip_smoke.py`` takes its shapes, inputs, bounds and library calls from
 here. Needs a CUDA device.
 """
@@ -192,6 +193,7 @@ def measure(segment_ops, rng, dev, reps=20):
                 rows.append({
                     'shape': shape, 'B': B, 'E': e, 'N': n, 'D': d,
                     'kernel': name, 'max_abs_err': err,
+                    'equal_to_plain': bool(torch.equal(got, want)),
                     'library_max_abs_err': lib_err,
                     'ms': cuda_time_ms(fn, reps),
                     'device_ms': device_time_ms(fn, reps),
@@ -223,6 +225,77 @@ def width_sweep(segment_ops, rng, dev, reps=20):
     return rows
 
 
+def backward_width_sweep(segment_ops, rng, dev, reps=20):
+    """The backward kernel at the trainer's graph for every supported
+    width: its time against the bytes, most of which (dh and the rows of
+    g) grow with D, and the endpoints and the mask, which do not. Records
+    the launch plan where the tree has one (trees before it had none)."""
+    _, e, n, _ = SHAPES[1]
+    edges, mask = random_graph(rng, B, e, n)
+    edges, mask = edges.to(dev), mask.to(dev)
+    counts = _counts(segment_ops, edges, mask, n)
+    plan = getattr(segment_ops, 'backward_plan', None)
+    rows = []
+    for d in segment_ops.SUPPORTED_DIMS:
+        g = torch.as_tensor(rng.normal(size=(B, n, d)), dtype=torch.float32,
+                            device=dev)
+        def fn():
+            return segment_ops.segment_mean_backward(g, counts, edges, mask)
+        rows.append({'shape': 'trainer_backward_width_sweep', 'B': B, 'E': e,
+                     'N': n, 'D': d, 'kernel': 'segment_mean_backward',
+                     'plan': plan(n, d)._asdict() if plan else None,
+                     'ms': cuda_time_ms(fn, reps),
+                     'device_ms': device_time_ms(fn, reps),
+                     'bound_ms': bound_ms(backward_bytes(edges, mask, counts,
+                                                         d))})
+    return rows
+
+
+def backward_tile_sweep(segment_ops, rng, dev, reps=20):
+    """The backward kernel at every shape of SHAPES with each column tile
+    that fits one block's shared memory, and with the gather path, each at
+    512 and 1024 threads a block: what backward_plan's choice ('chosen') is
+    worth against the others. Trees without launch plans have nothing to
+    sweep."""
+    plan_type = getattr(segment_ops, 'BackwardPlan', None)
+    if plan_type is None:
+        return []
+    rows = []
+    for shape, e, n, d in SHAPES:
+        edges, mask = random_graph(rng, B, e, n)
+        edges, mask = edges.to(dev), mask.to(dev)
+        counts = _counts(segment_ops, edges, mask, n)
+        g = torch.as_tensor(rng.normal(size=(B, n, d)), dtype=torch.float32,
+                            device=dev)
+        want = segment_ops.segment_mean_backward_ref(g, counts, edges, mask)
+        tiles = [(t, n * t * 4) for t in (64, 32, 16, 8, 4)
+                 if t <= d and d % t == 0
+                 and n * t * 4 <= segment_ops.SHARED_BYTES_PER_BLOCK]
+        plans = [plan_type(t, size, threads)
+                 for t, size in tiles + [(d, 0)] for threads in (512, 1024)]
+        for plan in plans:
+            def fn(plan=plan):
+                return segment_ops.segment_mean_backward(g, counts, edges,
+                                                         mask, plan)
+            rows.append({
+                'shape': f'{shape}_backward_tile_sweep', 'B': B, 'E': e,
+                'N': n, 'D': d, 'kernel': 'segment_mean_backward',
+                'plan': plan._asdict(),
+                'chosen': plan == segment_ops.backward_plan(n, d),
+                'equal_to_plain': bool(torch.equal(fn(), want)),
+                'ms': cuda_time_ms(fn, reps),
+                'device_ms': device_time_ms(fn, reps),
+                'bound_ms': bound_ms(backward_bytes(edges, mask, counts, d))})
+    return rows
+
+
+def _counts(segment_ops, edges, mask, num_nodes):
+    """(B, N) counts of a graph, from the plain forward."""
+    b, e = mask.shape
+    return segment_ops.segment_mean_counts_ref(
+        torch.zeros(b, e, 8, device=mask.device), edges, mask, num_nodes)[1]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--root', default=None,
@@ -239,7 +312,9 @@ def main(argv=None):
     segment_ops.build_libraries()
     dev = torch.device('cuda', 0)
     rng = np.random.default_rng(args.seed)
-    rows = measure(segment_ops, rng, dev) + width_sweep(segment_ops, rng, dev)
+    rows = (measure(segment_ops, rng, dev) + width_sweep(segment_ops, rng, dev)
+            + backward_width_sweep(segment_ops, rng, dev)
+            + backward_tile_sweep(segment_ops, rng, dev))
     lines = [json.dumps({'root': root, 'gpu': torch.cuda.get_device_name(0),
                          **r}) for r in rows]
     print('\n'.join(lines), flush=True)

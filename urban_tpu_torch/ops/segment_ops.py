@@ -11,7 +11,9 @@ gradient.
   kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``).
 * ``SegmentMean`` is the autograd function: its forward is
   ``segment_mean_counts``, its backward ``segment_mean_backward``
-  (``csrc/segment_mean_backward.cu``, a gather with no TPU counterpart).
+  (``csrc/segment_mean_backward.cu``, no TPU counterpart), launched with
+  the column tile, shared memory and block size that ``backward_plan``
+  chooses.
 * Each wrapper launches its hand-written Hopper kernel on a CUDA tensor (or
   raises) and runs its plain PyTorch version on a CPU tensor:
   ``segment_mean_ref`` / ``segment_mean_counts_ref`` (counterparts of
@@ -35,13 +37,18 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 EPSILON = 1e-6
 SUPPORTED_DIMS = (8, 16, 32, 64)
+# Hopper (H100): shared memory one block may opt in to, an SM's shared
+# memory, and what the runtime reserves per resident block
+SHARED_BYTES_PER_BLOCK = 232448
+SHARED_BYTES_PER_SM = 233472
+SHARED_BYTES_RESERVED = 1024
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, 'csrc')
@@ -57,7 +64,7 @@ KERNELS = {
         'segment_mean_fits': [_I, _I]}),
     'segment_mean_backward': ('segment_mean_backward.cu', {
         'segment_mean_backward_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _P]}),
+                                      _I, _I, _I, _P]}),
 }
 
 launches = dict.fromkeys(KERNELS, 0)   # kernel launches since the last reset
@@ -186,6 +193,36 @@ def _check(h_edges, edges, edge_mask, num_nodes):
         raise ValueError('h_edges must be contiguous')
 
 
+class BackwardPlan(NamedTuple):
+    """Launch of csrc/segment_mean_backward.cu: each block of `threads`
+    threads stages `tile` columns of every node row in `shared_bytes` of
+    shared memory; 0 bytes is the gather path (full rows read from device
+    memory)."""
+    tile: int
+    shared_bytes: int
+    threads: int
+
+
+def backward_plan(num_nodes: int, width: int) -> BackwardPlan:
+    """The backward kernel's column tile, shared memory and block size for
+    N nodes of D columns. Tiles are multiples of 4 columns (float4)
+    dividing D. First choice: the widest tile of at least 8 columns (whole
+    32-byte sectors of a dh row per block) with which two blocks of 512
+    threads share an SM; else the widest tile one block of 1024 threads can
+    hold; else, where not even 4 columns of N rows fit, the gather path,
+    also with 1024 threads (kernel_bench's tile sweep times the others)."""
+    n = int(num_nodes)
+    tiles = [t for t in (64, 32, 16, 8, 4) if t <= width and width % t == 0]
+    two_per_sm = SHARED_BYTES_PER_SM // 2 - SHARED_BYTES_RESERVED
+    for t in tiles:
+        if t >= 8 and n * t * 4 <= two_per_sm:
+            return BackwardPlan(t, n * t * 4, 512)
+    for t in tiles:
+        if n * t * 4 <= SHARED_BYTES_PER_BLOCK:
+            return BackwardPlan(t, n * t * 4, 1024)
+    return BackwardPlan(width, 0, 1024)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -269,11 +306,13 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
 
 
 def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
-                          edges: torch.Tensor, edge_mask: torch.Tensor
-                          ) -> torch.Tensor:
+                          edges: torch.Tensor, edge_mask: torch.Tensor,
+                          plan: BackwardPlan = None) -> torch.Tensor:
     """Gradient of the segment mean in h_edges: the backward of
-    SegmentMean. CUDA tensors run csrc/segment_mean_backward.cu, CPU
-    tensors the plain version."""
+    SegmentMean. CUDA tensors run csrc/segment_mean_backward.cu with
+    `plan` (default: backward_plan's; kernel_bench times the others), CPU
+    tensors the plain version. Both take the same inputs: grad_out must be
+    16-byte and edges 8-byte aligned."""
     _check_features('grad_out', grad_out, '(B, N, D)')
     B, N, D = grad_out.shape
     E = edge_mask.shape[-1]
@@ -286,14 +325,20 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
         raise ValueError('all tensors must share a device')
     if not (grad_out.is_contiguous() and counts.is_contiguous()):
         raise ValueError('grad_out and counts must be contiguous')
+    if grad_out.data_ptr() % 16 or edges.data_ptr() % 8:
+        raise ValueError('segment_mean_backward: grad_out must be 16-byte '
+                         'and edges 8-byte aligned')
     dev = _device(grad_out)
     if dev.type == 'cpu':
         return segment_mean_backward_ref(grad_out, counts, edges, edge_mask)
     dh = torch.empty((B, E, D), dtype=torch.float32, device=dev)
+    if dh.data_ptr() % 16:
+        raise ValueError('segment_mean_backward: dh is not 16-byte aligned')
+    plan = plan or backward_plan(N, D)
     with torch.cuda.device(dev):
         _launch('segment_mean_backward', 'segment_mean_backward_f32',
                 grad_out.data_ptr(), counts.data_ptr(), edges.data_ptr(),
-                edge_mask.data_ptr(), dh.data_ptr(), B, E, N, D,
+                edge_mask.data_ptr(), dh.data_ptr(), B, E, N, D, *plan,
                 _stream(dev))
     return dh
 
