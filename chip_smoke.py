@@ -5,20 +5,24 @@
 Builds the two CUDA kernels from the sources in the checkout (one nvcc per
 source, all at once) and checks each against its plain PyTorch version at
 the shapes of the main paths: the forward segment mean, which every path
-runs, and its backward, which the PPO update runs, each at the rollout's,
-the trainer's and a large graph's size, timed beside one PyTorch library
-call and its memory bound (urban_tpu_torch/kernel_bench.py). The backward
-must give the plain version's bits, on the card and on the CPU.
+runs, and its backward, which the PPO update runs, each at the HLG
+rollout's, the HLG trainer's, a large graph's, the grid trainer's and the
+concept scenarios' size, timed beside one PyTorch library call and its
+memory bound (urban_tpu_torch/kernel_bench.py). The backward must give the
+plain version's bits, on the card and on the CPU.
 Runs the SGNN policy on the card against the same model on the CPU, and
 one PPO loss backward on the card against the CPU. Drives the batched HLG
 rollout (256 envs x 30 steps), steps GPU and CPU environments in lockstep,
 then runs one full HLG PPO train_iteration (256 envs x 50 steps, 4 epochs
-of minibatch 256) and a 16-env greedy evaluation, showing from the launch
-counts that each path went through its kernels. One line per phase; the
-line before the last is one JSON object describing each kernel, the last
-line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
-when there is no CUDA device or any check fails. About 5 minutes on an
-H100.
+of minibatch 256) and a 16-env greedy evaluation. Then the road and
+concept rewards on the card against the CPU, a road-stage lockstep of the
+grid scenario on the card against the CPU, and one full grid PPO
+train_iteration with land use and roads (192 envs x 120 steps, 4 epochs of
+minibatch 256), whose road head must learn. The launch counts show that
+each path went through its kernels. One line per phase; the line before
+the last is one JSON object describing each kernel, the last line is
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
+there is no CUDA device or any check fails. About 8-10 minutes on an H100.
 """
 import json
 import os
@@ -44,7 +48,11 @@ STATE_RTOL, STATE_ATOL = 1e-5, 1e-4   # float state fields, as the CPU tests
 # arithmetic (softmax ignores a shift common to all logits), so on both
 # devices it is rounding noise far below 1e-6
 TOL_GRAD_REL, TOL_GRAD_ABS = 1e-3, 1e-6
+TOL_ROAD = 1e-6          # road reward, card vs CPU (f32 sums, other order)
 ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 50, 16
+# the grid trainer's own batch and window (urban_tpu/cfg grid.yaml)
+GRID_ENVS, GRID_LEN = 192, 120
+ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
 
 
 def phase(name, t0, **kv):
@@ -52,9 +60,10 @@ def phase(name, t0, **kv):
                       **kv}), flush=True)
 
 
-def check_kernels(kb, segment_ops, dev, hlg_obs, t0):
+def check_kernels(kb, segment_ops, dev, real_obs, t0):
     """Phase 3: the forward and the backward kernel against their plain
-    versions at every shape of kb.SHAPES, timed on the random graphs.
+    versions at every shape of kb.SHAPES, timed on the random graphs, and
+    on a scenario's real graph where real_obs has one for the shape.
     Returns the times by shape and the largest errors; the inputs, some of
     them GB, are freed on return, before the paths whose memory is
     measured."""
@@ -64,13 +73,13 @@ def check_kernels(kb, segment_ops, dev, hlg_obs, t0):
     for shape, e, n, d in kb.SHAPES:
         graphs = {'random_bipartite_30pct_masked': kb.random_graph(rng, B, e,
                                                                    n)}
-        if shape in hlg_obs:
-            o = hlg_obs[shape]
+        if shape in real_obs:
+            gname, o = real_obs[shape]
             if tuple(o[2].shape[1:2]) + tuple(o[4].shape[1:2]) != (e, n):
-                raise AssertionError(f'{shape}: HLG graph is not {(e, n)}')
-            graphs['hlg_initial_observation'] = (
-                o[2].expand(B, -1, -1).contiguous(),
-                o[5].expand(B, -1).contiguous())
+                raise AssertionError(f'{shape}: {gname} graph is not '
+                                     f'{(e, n)}')
+            graphs[gname] = (o[2].expand(B, -1, -1).contiguous(),
+                             o[5].expand(B, -1).contiguous())
         for gname, (edges, mask) in graphs.items():
             timed = gname.startswith('random_bipartite')
             h = torch.where(mask[..., None], torch.as_tensor(
@@ -96,7 +105,7 @@ def check_kernels(kb, segment_ops, dev, hlg_obs, t0):
                 raise AssertionError(f'{shape} {gname}: kernel vs plain '
                                      f'{err} > {TOL_KERNEL}')
             # on a bipartite graph the CPU plain version adds each node's
-            # rows in edge order, as the kernel does; on the HLG graph
+            # rows in edge order, as the kernel does; on a scenario's graph
             # some nodes are both first and second endpoints, and its two
             # index_add_ passes add them in another order
             same_bits = torch.equal(out.cpu(), cpu_out)
@@ -171,6 +180,149 @@ def check_kernels(kb, segment_ops, dev, hlg_obs, t0):
     return fwd, bwd, fwd_err, bwd_err
 
 
+def lockstep(spec, s_cpu, s_gpu, n_steps, choose):
+    """Steps the CPU states s_cpu and the card states s_gpu n_steps times
+    through the batched step with the same actions, choose(observation on
+    the CPU) -> (B, 2) int32; each step the observation's edges and masks,
+    the failure code, every state field and the reward must agree (ints
+    and bools equal, floats within STATE_RTOL / STATE_ATOL). Returns
+    (agreeing steps, per-step info on the CPU, per-step rewards)."""
+    from urban_tpu_torch.torchenv import state as tstate
+    from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
+                                                  make_batch_fns)
+    batch_obs, batch_step = make_batch_fns(spec)
+    dev = s_gpu.stage.device
+    infos, rewards = [], []
+    for step in range(n_steps):
+        o_cpu = batch_obs(s_cpu)
+        o_gpu = batch_obs(s_gpu)
+        for k in (2, 4, 5, 6, 7):
+            if not torch.equal(o_cpu[k], o_gpu[k].cpu()):
+                raise AssertionError(f'step {step}: observation {k} differs')
+        a = torch.as_tensor(choose(o_cpu))
+        n_cpu, r_cpu, _, i_cpu = batch_step(s_cpu, a)
+        n_cpu, r_cpu = apply_stage_rewards(spec, n_cpu, r_cpu, i_cpu)
+        n_gpu, r_gpu, _, i_gpu = batch_step(s_gpu, a.to(dev))
+        n_gpu, r_gpu = apply_stage_rewards(spec, n_gpu, r_gpu, i_gpu)
+        if not torch.equal(i_cpu['failure_code'], i_gpu['failure_code'].cpu()):
+            raise AssertionError(f'step {step}: failure_code differs')
+        for name in tstate.FIELD_NAMES:
+            x, y = getattr(n_cpu, name), getattr(n_gpu, name).cpu()
+            if x.dtype.is_floating_point:
+                ok = torch.allclose(y, x, rtol=STATE_RTOL, atol=STATE_ATOL)
+            else:
+                ok = torch.equal(x, y)
+            if not ok:
+                raise AssertionError(f'step {step}: field {name} differs')
+        if not torch.allclose(r_gpu.cpu(), r_cpu, rtol=STATE_RTOL,
+                              atol=STATE_ATOL):
+            raise AssertionError(f'step {step}: reward differs')
+        infos.append(i_cpu)
+        rewards.append(r_cpu)
+        s_cpu, s_gpu = n_cpu, n_gpu
+    return n_steps, infos, rewards
+
+
+def compare_road_reward(spec, states_cpu, dev, what):
+    """batched_road_network_reward on the card against the CPU on the same
+    states: its integer terms equal, the reward within TOL_ROAD. Returns
+    (summary, the CPU's rewards)."""
+    from urban_tpu_torch.torchenv.step import batched_road_network_reward
+    r_cpu, c_cpu = batched_road_network_reward(spec, states_cpu,
+                                               with_counts=True)
+    states = states_cpu.map(lambda x: x.to(dev))
+    torch.cuda.synchronize()
+    t = time.time()
+    r_gpu, c_gpu = batched_road_network_reward(spec, states,
+                                               with_counts=True)
+    torch.cuda.synchronize()
+    card_s = time.time() - t
+    for k, v in c_cpu.items():
+        if not torch.equal(v, c_gpu[k].cpu()):
+            raise AssertionError(f'road reward {what}: {k} differ: card '
+                                 f'{c_gpu[k].tolist()} cpu {v.tolist()}')
+    err = float((r_gpu.cpu() - r_cpu).abs().max())
+    if not err <= TOL_ROAD:
+        raise AssertionError(f'road reward {what}: card vs cpu {err}')
+    return {'states': what, 'batch': int(r_cpu.shape[0]),
+            'max_abs_err': err, 'tolerance': TOL_ROAD,
+            'card_seconds': card_s,
+            'reward_range': [float(r_cpu.min()), float(r_cpu.max())],
+            'count_ranges': {k: [int(v.min()), int(v.max())]
+                             for k, v in c_cpu.items()}}, r_cpu
+
+
+def compare_concept_reward(spec, init_cpu, dev, chunk=64):
+    """concept_reward and land_use_stage_reward, vmapped as the rollout
+    calls them, on CONCEPT_BATCH plans (the initial one and seeded random
+    land uses on its alive polygons), on the card against the CPU within
+    STATE_RTOL / STATE_ATOL."""
+    from torch.func import vmap
+    from urban_tpu_torch.torchenv import state as tstate
+    from urban_tpu_torch.torchenv.step import (concept_reward,
+                                               land_use_stage_reward)
+    fields = tstate.plan_state_to_numpy(init_cpu)
+    alive = np.nonzero(fields['poly_alive'])[0]
+    rng = np.random.default_rng(13)
+    batch = {k: np.repeat(v[None], CONCEPT_BATCH, 0)
+             for k, v in fields.items()}
+    batch['poly_type'][1:, alive] = rng.choice(
+        [4, 4, 4, 5, 6, 7, 8, 9, 10, 11, 12], (CONCEPT_BATCH - 1, len(alive)))
+    states = tstate.plan_state_from_numpy(batch, 'cpu')
+    out = {}
+    for name, fn in (('concept', concept_reward),
+                     ('land_use_stage', land_use_stage_reward)):
+        f = vmap(lambda s: fn(spec, s))
+        parts = [(f(states.map(lambda x: x[i:i + chunk])),
+                  f(states.map(lambda x: x[i:i + chunk].to(dev))).cpu())
+                 for i in range(0, CONCEPT_BATCH, chunk)]
+        cpu = torch.cat([p[0] for p in parts])
+        card = torch.cat([p[1] for p in parts])
+        if not torch.allclose(card, cpu, rtol=STATE_RTOL, atol=STATE_ATOL):
+            raise AssertionError(f'{name} reward card vs cpu: '
+                                 f'{float((card - cpu).abs().max())}')
+        out[name] = {'max_abs_err': float((card - cpu).abs().max()),
+                     'range': [float(cpu.min()), float(cpu.max())]}
+    if not out['concept']['range'][1] > 0:
+        raise AssertionError('concept reward is zero on every plan')
+    return out
+
+
+def road_lockstep(spec, init_np, dev):
+    """ROAD_LOCKSTEP_ENVS grid envs at the start of their road stage
+    (road_fixtures.road_stage_state, seeds 0-7) stepped through every road
+    step on the card and on the CPU with the same road actions, drawn
+    from the CPU's road mask; every env must finish its road stage once,
+    without failure, with a road reward in (0, 1]."""
+    from urban_tpu_torch.torchenv import road_fixtures
+    from urban_tpu_torch.torchenv import state as tstate
+    states = [road_fixtures.road_stage_state(init_np, spec.road_ratio, seed)
+              for seed in range(ROAD_LOCKSTEP_ENVS)]
+    batch = {k: np.stack([x[k] for x in states]) for k in init_np}
+    budget = batch['total_road_steps']
+    s_cpu = tstate.plan_state_from_numpy(batch, 'cpu')
+    arng = np.random.default_rng(17)
+
+    def choose(o):
+        return np.array([[0, int(arng.choice(np.nonzero(rd)[0]))
+                          if rd.any() else 0] for rd in o[7].numpy()],
+                        dtype=np.int32)
+    n, infos, rewards = lockstep(spec, s_cpu, s_cpu.map(lambda x: x.to(dev)),
+                                 int(budget.max()), choose)
+    rd_done = torch.stack([i['rd_done'] for i in infos]).numpy()
+    failure = torch.stack([i['failure'] for i in infos]).numpy()
+    first = rd_done.argmax(0)
+    final = torch.stack(rewards).numpy()[first, np.arange(len(first))]
+    if not (rd_done.sum(0) == 1).all() or (first + 1 != budget).any() \
+            or failure[rd_done].any() or not ((final > 0)
+                                              & (final <= 1)).all():
+        raise AssertionError(f'road stage: rd_done at {first.tolist()}, '
+                             f'budgets {budget.tolist()}, rewards '
+                             f'{final.tolist()}')
+    return {'steps': n, 'road_budgets': budget.tolist(),
+            'road_rewards': final.tolist()}
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -182,9 +334,10 @@ def main():
     from urban_tpu_torch.models.policy import MASK_PAD
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
+    from urban_tpu_torch.torchenv import road_fixtures
+    from urban_tpu_torch.torchenv import rollout as rollout_mod
     from urban_tpu_torch.torchenv import state as tstate
-    from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
-                                                  broadcast_state,
+    from urban_tpu_torch.torchenv.rollout import (broadcast_state,
                                                   make_batch_fns, rollout)
     bench.set_precision_flags()
     dev = torch.device('cuda', 0)
@@ -210,18 +363,26 @@ def main():
 
     # ---- 3. the kernels against their plain versions --------------------
     # the forward and the backward at every shape of kb.SHAPES, on a random
-    # bipartite graph (timed) and, at the rollout's and the trainer's size,
-    # on the initial HLG observation
+    # bipartite graph (timed) and on a scenario's initial observation: HLG
+    # at the rollout's and the trainer's size, grid at its trainer's, and
+    # hlg_concept at the concept trainer's
     t0 = time.time()
     cfg, spec, init_cpu = bench.setup('hlg', bench.BENCH_CAPS, 'cpu')
-    batch_obs_cpu, batch_step_cpu = make_batch_fns(spec)
-    obs0 = batch_obs_cpu(broadcast_state(init_cpu, 1))
+    obs0 = make_batch_fns(spec)[0](broadcast_state(init_cpu, 1))
     cfg_t, spec_t, init_t = bench.setup('hlg', {}, 'cpu')  # trainer caps
     N_T, E_T = spec_t.num_features, spec_t.NE
     obs_t = make_batch_fns(spec_t)[0](broadcast_state(init_t, 1))
-    hlg_obs = {'rollout': obs0, 'trainer': obs_t}
-    fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev, hlg_obs,
-                                               t0)
+    _, spec_g, init_g_cpu = bench.setup('grid', {}, 'cpu')  # trainer caps
+    _, spec_c, init_c = bench.setup('hlg_concept', {}, 'cpu')
+    real_obs = {
+        'rollout': ('hlg_initial_observation', obs0),
+        'trainer': ('hlg_initial_observation', obs_t),
+        'grid_trainer': ('grid_initial_observation', make_batch_fns(
+            spec_g)[0](broadcast_state(init_g_cpu, 1))),
+        'concept': ('hlg_concept_initial_observation', make_batch_fns(
+            spec_c)[0](broadcast_state(init_c, 1)))}
+    fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
+                                               real_obs, t0)
 
     # ---- 4. model on the card vs the CPU --------------------------------
     t0 = time.time()
@@ -312,41 +473,13 @@ def main():
     # ---- 6. port GPU vs port CPU lockstep -------------------------------
     t0 = time.time()
     n_env, n_steps = 4, 10
-    batch_obs_gpu, batch_step_gpu = make_batch_fns(spec)
-    s_cpu = broadcast_state(init_cpu, n_env)
-    s_gpu = s_cpu.map(lambda x: x.to(dev))
     arng = np.random.default_rng(7)
-    agree = 0
-    for step in range(n_steps):
-        o_cpu = batch_obs_cpu(s_cpu)
-        o_gpu = batch_obs_gpu(s_gpu)
-        for k in (2, 4, 5, 6, 7):
-            if not torch.equal(o_cpu[k], o_gpu[k].cpu()):
-                raise AssertionError(f'step {step}: observation {k} differs')
-        lu = o_cpu[6].numpy()
-        acts = np.array([[int(arng.choice(np.nonzero(lu[b])[0]))
-                          if lu[b].any() else 0, 0] for b in range(n_env)],
-                        dtype=np.int32)
-        a = torch.as_tensor(acts)
-        n_cpu, r_cpu, _, i_cpu = batch_step_cpu(s_cpu, a)
-        n_cpu, r_cpu = apply_stage_rewards(spec, n_cpu, r_cpu, i_cpu)
-        n_gpu, r_gpu, _, i_gpu = batch_step_gpu(s_gpu, a.to(dev))
-        n_gpu, r_gpu = apply_stage_rewards(spec, n_gpu, r_gpu, i_gpu)
-        if not torch.equal(i_cpu['failure_code'], i_gpu['failure_code'].cpu()):
-            raise AssertionError(f'step {step}: failure_code differs')
-        for name in tstate.FIELD_NAMES:
-            x, y = getattr(n_cpu, name), getattr(n_gpu, name).cpu()
-            if x.dtype.is_floating_point:
-                ok = torch.allclose(y, x, rtol=STATE_RTOL, atol=STATE_ATOL)
-            else:
-                ok = torch.equal(x, y)
-            if not ok:
-                raise AssertionError(f'step {step}: field {name} differs')
-        if not torch.allclose(r_gpu.cpu(), r_cpu, rtol=STATE_RTOL,
-                              atol=STATE_ATOL):
-            raise AssertionError(f'step {step}: reward differs')
-        agree += 1
-        s_cpu, s_gpu = n_cpu, n_gpu
+    s_cpu = broadcast_state(init_cpu, n_env)
+    agree = lockstep(spec, s_cpu, s_cpu.map(lambda x: x.to(dev)), n_steps,
+                     lambda o: np.array(
+                         [[int(arng.choice(np.nonzero(lu)[0]))
+                           if lu.any() else 0, 0] for lu in o[6].numpy()],
+                         dtype=np.int32))[0]
     phase('lockstep_gpu_vs_cpu', t0, envs=n_env, steps=n_steps,
           agreeing_steps=agree)
 
@@ -395,25 +528,125 @@ def main():
               mean_successful_reward=eval_r, channels=chans,
               best_reward=trainer.best_reward, kernel_launches=eval_launches)
 
+    # ---- 8. the road-network reward, card vs CPU ------------------------
+    t0 = time.time()
+    init_np = tstate.plan_state_to_numpy(init_g_cpu)
+    # the named networks (serpentine corridor, diagonal roads, ...) and
+    # seeded random ones, ROAD_BATCH in all
+    named = list(road_fixtures.reward_states(init_np).values())
+    rand = road_fixtures.random_road_states(init_np, seed=11,
+                                            batch=ROAD_BATCH - len(named))
+    road_cpu = tstate.plan_state_from_numpy(
+        {k: np.concatenate([np.stack([x[k] for x in named]), rand[k]])
+         for k in init_np}, 'cpu')
+    road, _ = compare_road_reward(spec_g, road_cpu, dev,
+                                  'named and random networks')
+    phase('road_reward_card_vs_cpu', t0, **road)
+
+    # ---- 9. the concept reward, card vs CPU -----------------------------
+    t0 = time.time()
+    concept = {}
+    for name in ('hlg_concept', 'dhm_concept'):
+        _, spec_x, init_x = bench.setup(name, {}, 'cpu')
+        concept[name] = compare_concept_reward(spec_x, init_x, dev)
+    phase('concept_reward_card_vs_cpu', t0, batch=CONCEPT_BATCH, **concept)
+
+    # ---- 10. the grid road stage, GPU vs CPU lockstep -------------------
+    t0 = time.time()
+    road_steps = road_lockstep(spec_g, init_np, dev)
+    phase('road_lockstep_gpu_vs_cpu', t0, envs=ROAD_LOCKSTEP_ENVS,
+          **road_steps)
+
+    # ---- 11. the grid slice: one PPO train_iteration, land use + roads --
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as run_dir:
+        trainer = bench.make_trainer(GRID_ENVS, GRID_LEN, dev, seed=0,
+                                     root_dir=run_dir, name='grid')
+        if (trainer.spec.num_features, trainer.spec.NE) != (2688, 3000):
+            raise AssertionError('grid trainer graph is not (2688, 3000)')
+        before = {k: p.detach().clone()
+                  for k, p in trainer.model.named_parameters()}
+        # keep the states and rewards of the episodes that end their road
+        # stage without failure, as the collect's stage-reward pass leaves
+        # them (the next step's auto-reset overwrites the states)
+        terminal, road_rewards = [], []
+        apply = rollout_mod.apply_stage_rewards
+
+        def keep_terminal(spec_, states, reward, info):
+            states, reward = apply(spec_, states, reward, info)
+            fin = torch.nonzero(info['rd_done'] & ~info['failure'])[:, 0]
+            road_rewards.append(reward[fin])
+            if sum(len(r) for _, r in terminal) < ROAD_CPU_ENVS:
+                terminal.append((states.map(lambda x: x[fin].clone()),
+                                 reward[fin]))
+            return states, reward
+        rollout_mod.apply_stage_rewards = keep_terminal
+        try:
+            grid = bench.measure_train_iteration(trainer)  # resets counts
+        finally:
+            rollout_mod.apply_stage_rewards = apply
+        grid_launches = grid['kernel_launches']
+        mb_layers = grid['update_minibatch_steps'] * layers
+        expect = {'segment_mean': GRID_LEN * layers + mb_layers,
+                  'segment_mean_backward': mb_layers}
+        if grid_launches != expect:
+            raise AssertionError(f'grid train kernel launches '
+                                 f'{grid_launches} != {expect}')
+        if not all(np.isfinite(v) for v in grid['losses'].values()):
+            raise AssertionError(f'non-finite loss stats {grid["losses"]}')
+        unchanged = sorted(k for k, p in trainer.model.named_parameters()
+                           if torch.equal(p, before[k]))
+        if unchanged:
+            raise AssertionError(f'parameters the grid update left as they '
+                                 f'were: {unchanged}')
+        final = torch.cat(road_rewards).cpu()
+        if final.numel() < 1 or not bool(((final > 0) & (final <= 1)).all()):
+            raise AssertionError(f'road rewards {final.tolist()}')
+        if not grid['overflow_gate_1pct_pass']:
+            raise AssertionError(f'capacity gate: {grid}')
+        phase('grid_train', t0, unchanged_parameters=unchanged,
+              road_successes=int(final.numel()),
+              road_reward_range=[float(final.min()), float(final.max())],
+              **grid)
+
+    # the road reward on the collect's terminal states, card vs CPU, and
+    # against the reward the collect gave them
+    t0 = time.time()
+    states = tstate.PlanState(*(
+        torch.cat([getattr(x, n).cpu() for x, _ in terminal])[:ROAD_CPU_ENVS]
+        for n in tstate.FIELD_NAMES))
+    road_end, r_cpu = compare_road_reward(spec_g, states, dev,
+                                          'grid collect terminal states')
+    collect_r = torch.cat([r for _, r in terminal]).cpu()[:ROAD_CPU_ENVS]
+    err = float((r_cpu - collect_r).abs().max())
+    if not err <= TOL_ROAD:
+        raise AssertionError(f'collect road reward vs cpu: {err}')
+    phase('road_reward_card_vs_cpu', t0, collect_reward_max_abs_err=err,
+          **road_end)
+
     phase('total', t_start)
+    shape = 'grid_trainer'
     kernels = [
         ('segment_mean',
          'urban_tpu/ops/pallas/segment_ops.py:61 (segment_mean_pallas) and '
          'urban_tpu/ops/pallas/segment_ops.py:130 '
          '(segment_mean_onehot_pallas)',
          launches['segment_mean'] + train_launches['segment_mean']
-         + eval_launches['segment_mean'], fwd_err, fwd['trainer']),
+         + eval_launches['segment_mean'] + grid_launches['segment_mean'],
+         fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
-         train_launches['segment_mean_backward'], bwd_err, bwd['trainer']),
+         train_launches['segment_mean_backward']
+         + grid_launches['segment_mean_backward'], bwd_err, bwd[shape]),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'urban_tpu_torch/csrc/{segment_ops.KERNELS[name][0]}',
         'replaces': replaces, 'launches': n, 'max_abs_err': err,
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
-        'bound_by': 'bytes', 'library_ms': t['library_ms']}
+        'bound_by': 'bytes', 'library_ms': t['library_ms'],
+        'shape': shape}
         for name, replaces, n, err, t in kernels]}))
     print(smi_line)
     print(json.dumps({'ok': True, 'device': {

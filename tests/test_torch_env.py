@@ -60,7 +60,7 @@ def hlg():
     spec_t = tstate.build_env_spec(cfg, plc_t,
                                    max_steps=cfg.max_sequence_length,
                                    caps=BENCH_CAPS)
-    s0_t = tstate.build_initial_state(spec_t, plc_t)
+    s0_t = tstate.build_initial_state(spec_t, plc_t, device='cpu')
     return spec_j, s0_j, spec_t, s0_t
 
 
@@ -263,21 +263,6 @@ def test_stage_reward_matches_jax_on_filled_plan(hlg):
         spec_t, tstate.plan_state_from_numpy(fields, 'cpu')))
     assert jr > 0
     np.testing.assert_allclose(tr, jr, rtol=RTOL, atol=ATOL)
-
-
-def test_unported_rewards_raise(hlg):
-    _, _, spec_t, s0_t = hlg
-    road = spec_t.__class__(**{**spec_t.__dict__, 'skip_road': False,
-                               'road_network_weight': 1.0})
-    concept = spec_t.__class__(**{**spec_t.__dict__, 'concept_weight': 1.0,
-                                  'concepts': ((0.0, 1.0, 1.0, 1.0, 1.0,
-                                                10.0, 16.0),)})
-    a = torch.zeros(2, dtype=torch.int32)
-    for spec in (road, concept):
-        with pytest.raises(NotImplementedError):
-            tstep.env_step(spec, s0_t, a)
-        with pytest.raises(NotImplementedError):
-            tstep.land_use_stage_reward(spec, s0_t)
 
 
 def test_jax_index_semantics():

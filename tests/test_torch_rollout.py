@@ -84,14 +84,18 @@ def test_cpu_rollout_without_jax(tmp_path):
 
 
 def test_bench_helpers_default_to_the_card():
-    """bench.setup and bench.make_model without a device put the state and
-    the model on the card; without a card they raise rather than quietly
-    give a CPU run."""
+    """bench.setup, bench.make_model and state.build_initial_state without
+    a device put the state and the model on the card; without a card they
+    raise rather than quietly give a CPU run."""
     from urban_tpu_torch import bench
+    from urban_tpu_torch.host.envs.plan_client import PlanClient
+    from urban_tpu_torch.torchenv.state import build_initial_state
     cfg, spec, _ = bench.setup('hlg', {}, 'cpu')
     calls = {'setup': lambda: bench.setup('hlg', {})[2].done,
              'make_model': lambda: next(bench.make_model(cfg,
-                                                         spec).parameters())}
+                                                         spec).parameters()),
+             'build_initial_state': lambda: build_initial_state(
+                 spec, PlanClient(cfg.objectives_plan, cfg.init_plan)).done}
     for name, call in calls.items():
         if torch.cuda.is_available():
             assert call().device.type == 'cuda', name

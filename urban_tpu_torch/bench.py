@@ -1,10 +1,13 @@
-"""Batched HLG rollout throughput of the port: the SGNN policy sampling in
-the loop with the batched environment, the same scenario, capacities and
-model as the JAX package's root bench.py; and, with --train, one PPO
-train_iteration of the HLG trainer.
+"""Batched rollout throughput of the port: the SGNN policy sampling in the
+loop with the batched environment, by default the same scenario (HLG),
+capacities and model as the JAX package's root bench.py; and, with
+--train, one PPO train_iteration of a scenario's trainer (the JAX
+trainer's capacities). --cfg names the scenario (hlg, grid, dhm, ...).
 
     python -m urban_tpu_torch.bench --num_envs 256 --num_steps 30 --device cuda
     python -m urban_tpu_torch.bench --train --num_envs 256 --rollout_len 50
+    python -m urban_tpu_torch.bench --train --cfg grid --num_envs 192 \
+        --rollout_len 120
 
 prints one JSON line of the statistics. A rate measured on a CPU says
 nothing about the card; the result names the device it ran on.
@@ -32,6 +35,12 @@ from urban_tpu_torch.torchenv.state import build_env_spec, build_initial_state
 BENCH_CAPS = dict(KV=20, NP=256, NS=512, NPT=320, NE=2304)
 
 
+def default_caps(name: str) -> dict:
+    """The rollout bench's capacities: root bench.py's for HLG, the JAX
+    trainer's defaults (no caps) for the other scenarios."""
+    return BENCH_CAPS if name == 'hlg' else {}
+
+
 def load_config(name: str) -> SimpleNamespace:
     """The experiment config fields the slice reads, with the defaults of
     host.utils.config.Config (which also creates run directories;
@@ -56,14 +65,14 @@ def _scenario(name: str, caps: tuple):
     plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
     spec = build_env_spec(cfg, plc, max_steps=cfg.max_sequence_length,
                           caps=dict(caps))
-    return cfg, spec, build_initial_state(spec, plc)
+    return cfg, spec, build_initial_state(spec, plc, device='cpu')
 
 
 def setup(name: str = 'hlg', caps=None, device='cuda'):
     """(cfg, spec, initial state on `device`: the card unless the caller
-    asks for the CPU) for a scenario; the host build runs once per
-    process."""
-    caps = BENCH_CAPS if caps is None else caps
+    asks for the CPU) for a scenario, at default_caps(name) unless caps
+    are given; the host build runs once per process."""
+    caps = default_caps(name) if caps is None else caps
     cfg, spec, state = _scenario(name, tuple(sorted(caps.items())))
     return cfg, spec, state.map(lambda x: x.to(device))
 
@@ -101,13 +110,13 @@ def _sync(device: torch.device) -> None:
 
 
 def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
-                      device='cuda', seed: int = 0) -> dict:
-    """One batched HLG rollout of num_envs x num_steps, every env starting
-    fresh; returns env steps/s and the episode statistics."""
+                      device='cuda', seed: int = 0, name: str = 'hlg') -> dict:
+    """One batched rollout of scenario `name`, num_envs x num_steps, every
+    env starting fresh; returns env steps/s and the episode statistics."""
     set_precision_flags()
     device = torch.device(device)
     build_kernels(device)
-    cfg, spec, init_state = setup('hlg', BENCH_CAPS, device)
+    cfg, spec, init_state = setup(name, device=device)
     model = make_model(cfg, spec, seed, device)
     start = broadcast_state(
         init_state.replace(done=torch.ones_like(init_state.done)), num_envs)
@@ -125,7 +134,7 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
     return {
         'device': (torch.cuda.get_device_name(device)
                    if device.type == 'cuda' else 'cpu'),
-        'num_envs': num_envs, 'num_steps': num_steps,
+        'cfg': name, 'num_envs': num_envs, 'num_steps': num_steps,
         'seconds': dt, 'env_steps_per_sec': num_envs * num_steps / dt,
         'episodes': eps, 'failures': fails, 'failure_causes': causes,
         'mean_episode_reward': float(r_sum) / max(eps - fails, 1),
@@ -135,15 +144,17 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
 
 
 def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
-                 seed: int = 0, eval_envs: int = 16, root_dir: str = None):
-    """The HLG PPO trainer at the trainer's own capacities; its run logs
-    go under root_dir (default: the temp directory)."""
+                 seed: int = 0, eval_envs: int = 16, root_dir: str = None,
+                 name: str = 'hlg'):
+    """The PPO trainer of scenario `name` at the JAX trainer's own
+    capacities; its run logs go under root_dir (default: the temp
+    directory)."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.rl.trainer import Trainer
     set_precision_flags()
     root_dir = root_dir or os.path.join(tempfile.gettempdir(),
                                         'urban_tpu_torch')
-    cfg = Config('hlg', seed, tmp=False, root_dir=root_dir)
+    cfg = Config(name, seed, tmp=False, root_dir=root_dir)
     return Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
                    eval_envs=eval_envs, device=device)
 
@@ -166,6 +177,7 @@ def measure_train_iteration(trainer) -> dict:
     return {
         'device': (torch.cuda.get_device_name(device)
                    if device.type == 'cuda' else 'cpu'),
+        'cfg': cfg.id,
         'num_envs': trainer.num_envs, 'rollout_len': trainer.rollout_len,
         'num_nodes': trainer.spec.num_features, 'num_edges': trainer.spec.NE,
         't_sample_s': st.sample_time, 't_update_s': st.update_time,
@@ -187,20 +199,22 @@ def measure_train_iteration(trainer) -> dict:
 
 
 def run_train_bench(num_envs: int = 256, rollout_len: int = 50,
-                    device='cuda', seed: int = 0) -> dict:
-    """One PPO train_iteration of the HLG trainer (no eval)."""
+                    device='cuda', seed: int = 0, name: str = 'hlg') -> dict:
+    """One PPO train_iteration of scenario `name`'s trainer (no eval)."""
     return measure_train_iteration(make_trainer(num_envs, rollout_len,
-                                                device, seed))
+                                                device, seed, name=name))
 
 
 @torch.no_grad()
 def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
-                    seed: int = 0) -> dict:
-    """Where one rollout step's time goes, on a CUDA device: host-clock
-    time of each layer (observation, policy, env step, stage rewards) with
-    a synchronize after each, then a torch.profiler trace of the same steps
-    for the device's busy share, kernel launches per step and the kernels
-    that take the most device time."""
+                    seed: int = 0, name: str = 'hlg', warmup: int = 1) -> dict:
+    """Where one rollout step's time goes, on a CUDA device, after `warmup`
+    steps from fresh envs (auto-reset as in the rollout; many warm-up steps
+    reach the steady state where episodes end and stage rewards run):
+    host-clock time of each layer (observation, policy, env step, stage
+    rewards) with a synchronize after each, then a torch.profiler trace of
+    the same steps for the device's busy share, kernel launches per step
+    and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
@@ -210,7 +224,7 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     if device.type != 'cuda':
         raise ValueError('profile_rollout measures a CUDA device')
     build_kernels(device)
-    cfg, spec, init_state = setup('hlg', BENCH_CAPS, device)
+    cfg, spec, init_state = setup(name, device=device)
     model = make_model(cfg, spec, seed, device)
     init_b = broadcast_state(init_state, num_envs)
     state = init_b
@@ -235,12 +249,13 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
         state, _ = apply_stage_rewards(spec, state, reward, info)
         mark()
         if layers is not None:
-            for name, a, b in zip(('obs', 'policy', 'env_step',
-                                   'stage_rewards'), marks, marks[1:]):
-                layers[name] = layers.get(name, 0.0) + (b - a)
+            for layer, a, b in zip(('obs', 'policy', 'env_step',
+                                    'stage_rewards'), marks, marks[1:]):
+                layers[layer] = layers.get(layer, 0.0) + (b - a)
         return state
 
-    state = step(state)                       # warm-up
+    for _ in range(warmup):
+        state = step(state)
     layers = {}
     for _ in range(num_steps):
         state = step(state, layers)
@@ -260,8 +275,8 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        'device': torch.cuda.get_device_name(device),
-        'num_envs': num_envs, 'steps': num_steps,
+        'device': torch.cuda.get_device_name(device), 'cfg': name,
+        'num_envs': num_envs, 'warmup_steps': warmup, 'steps': num_steps,
         'layer_seconds_per_step': {k: v / num_steps
                                    for k, v in layers.items()},
         'profiled_wall_seconds_per_step': wall / num_steps,
@@ -279,6 +294,7 @@ def main() -> None:
     ap.add_argument('--num_steps', type=int, default=30)
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--cfg', default='hlg', help='scenario (config id)')
     ap.add_argument('--profile', action='store_true',
                     help='per-layer times and a device trace of num_steps '
                     'steps instead of the throughput run')
@@ -286,12 +302,18 @@ def main() -> None:
                     help='one PPO train_iteration of num_envs x rollout_len '
                     'steps instead of the rollout')
     ap.add_argument('--rollout_len', type=int, default=50)
+    ap.add_argument('--warmup', type=int, default=1,
+                    help='--profile: steps before the profiled ones')
     a = ap.parse_args()
     if a.train:
-        out = run_train_bench(a.num_envs, a.rollout_len, a.device, a.seed)
+        out = run_train_bench(a.num_envs, a.rollout_len, a.device, a.seed,
+                              a.cfg)
+    elif a.profile:
+        out = profile_rollout(a.num_envs, a.num_steps, a.device, a.seed,
+                              a.cfg, a.warmup)
     else:
-        fn = profile_rollout if a.profile else run_rollout_bench
-        out = fn(a.num_envs, a.num_steps, a.device, a.seed)
+        out = run_rollout_bench(a.num_envs, a.num_steps, a.device, a.seed,
+                                a.cfg)
     print(json.dumps(out))
 
 

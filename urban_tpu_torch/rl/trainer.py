@@ -17,8 +17,8 @@ the rollout and sampling noise comes from an explicit ``torch.Generator``.
 Not in this port yet (ROADMAP.md, queue 1), and refused with
 NotImplementedError: the two-phase land-use -> road curriculum
 (``--separate_train``, ``freeze_land_use_trainer``,
-``transfer_matching_params``), the data-parallel mesh (``--num_devices``
-> 1) and the road-network reward channel.
+``transfer_matching_params``) and the data-parallel mesh
+(``--num_devices`` > 1).
 """
 from __future__ import annotations
 
@@ -46,7 +46,8 @@ from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
 from urban_tpu_torch.torchenv.state import (build_env_spec,
                                             build_initial_state,
                                             plan_state_to_numpy)
-from urban_tpu_torch.torchenv.step import (check_supported, greenness_reward,
+from urban_tpu_torch.torchenv.step import (batched_road_network_reward,
+                                           greenness_reward,
                                            life_circle_reward)
 
 NOT_PORTED = ('is not ported to urban_tpu_torch yet (ROADMAP.md, queue 1)')
@@ -70,13 +71,17 @@ class TrainStats:
 @torch.no_grad()
 def _reward_channels(spec, states):
     """Per-env raw reward channels (life circle, greenness, road network)
-    of batched terminal states. The road channel is zero on scenarios that
-    do not plan roads (skip_road, or no road weight)."""
-    if not (spec.skip_road or spec.road_network_weight <= 0):
-        raise NotImplementedError(f'the road-network reward {NOT_PORTED}')
+    of batched terminal states. The road channel is computed only on
+    scenarios that plan roads and is zero otherwise: on a skip_road
+    scenario the raster face decomposition would cover the full 1-m grid
+    (HLG: 2160 x 2040 cells), which must never be built."""
     life = vmap(lambda s: life_circle_reward(spec, s))(states)
     green = vmap(lambda s: greenness_reward(spec, s))(states)
-    return life, green, torch.zeros_like(life)
+    if spec.skip_road or spec.road_network_weight <= 0:
+        road = torch.zeros_like(life)
+    else:
+        road = batched_road_network_reward(spec, states)
+    return life, green, road
 
 
 class Trainer:
@@ -90,7 +95,6 @@ class Trainer:
         # the JAX trainer's spec: default capacities, the config's edge cap
         self.spec = build_env_spec(cfg, self.plc,
                                    max_steps=cfg.max_sequence_length)
-        check_supported(self.spec)
         self.init_state = build_initial_state(self.spec, self.plc,
                                               device=self.device)
         self.num_envs = num_envs or cfg.rollout_specs.get('num_envs', 256)

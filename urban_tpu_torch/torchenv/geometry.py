@@ -1,5 +1,5 @@
 """Fixed-buffer geometry for the batched environment (counterpart of
-urban_tpu/jaxenv/geometry.py, the part that slicer.py and step.py reach).
+urban_tpu/jaxenv/geometry.py).
 
 Every function here works on ONE environment (a ``(KV, 2)`` ring with a
 vertex count, a point table, ...) and is shape-static and branchless, so
@@ -356,6 +356,19 @@ def point_segment_distance(p, a, b):
     return norm(p - proj)
 
 
+def segments_cross(p1, p2, a, b, eps: float = 1e-9):
+    """Broadcasted PROPER crossing test of segments (p1, p2) and (a, b) on
+    (..., 2) tensors: True when they cross at an interior point of both;
+    touching at an endpoint or collinear overlap is False."""
+    def cr(u, v):
+        return cross(u[..., 0], u[..., 1], v[..., 0], v[..., 1])
+    d1 = cr(b - a, p1 - a)
+    d2 = cr(b - a, p2 - a)
+    d3 = cr(p2 - p1, a - p1)
+    d4 = cr(p2 - p1, b - p1)
+    return (d1 * d2 < -eps) & (d3 * d4 < -eps)
+
+
 def point_in_ring(p, ring, nvert):
     """Strict interior test (crossing number), bool."""
     m = ring_mask(nvert, ring.shape[0])
@@ -386,6 +399,78 @@ def dedupe_ring(ring, nvert, tol: float = 1e-7):
     counts = keep.to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts
     return onehot_place(ring, offsets, keep, kv), counts.sum()
+
+
+def halfplane_clip_ring(ring, nvert, a, b, keep_left=True):
+    """Sutherland–Hodgman half-plane clip on a fixed (KV, 2) buffer; a
+    multi-piece result comes out as one bridged ring. keep_left: a bool or
+    a bool tensor. Returns (out_ring, out_nvert, overflow)."""
+    kv = ring.shape[0]
+    d = b - a
+    m = ring_mask(nvert, kv)
+    u = ring - a
+    side = cross2_compensated(d[0], d[1], u[:, 0], u[:, 1])
+    if isinstance(keep_left, bool):
+        side = side if keep_left else -side
+    else:
+        side = torch.where(keep_left, side, -side)
+    side_nxt = ring_next(side, nvert)
+    ring_nxt = ring_next(ring, nvert)
+    keep_cur = (side >= -1e-9) & m
+    crosses = (((side > 1e-9) & (side_nxt < -1e-9))
+               | ((side < -1e-9) & (side_nxt > 1e-9))) & m
+    t = side / torch.where(torch.abs(side - side_nxt) > 1e-12,
+                           side - side_nxt, 1.0)
+    cross_pt = fma(t[:, None], ring_nxt - ring, ring)
+    # each input vertex emits itself (if kept), then its edge's crossing
+    counts = keep_cur.to(torch.int64) + crosses.to(torch.int64)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = counts.sum()
+    out = onehot_place(ring, offsets, keep_cur, 2 * kv) + \
+        onehot_place(cross_pt, offsets + keep_cur.to(torch.int64), crosses,
+                     2 * kv)
+    return out[:kv], torch.clamp_max(total, kv), total > kv
+
+
+def envelope_rect(points, mask):
+    """Axis-aligned bounding rectangle (4, 2) of masked points."""
+    m = mask[:, None]
+    lo = torch.where(m, points, BIG).amin(0)
+    hi = torch.where(m, points, -BIG).amax(0)
+    return torch.stack([lo, torch.stack([hi[0], lo[1]]), hi,
+                        torch.stack([lo[0], hi[1]])])
+
+
+def clip_poly_by_convex_quad(ring, nvert, quad):
+    """Clip a masked ring by a convex CCW quadrilateral.
+    Returns (out_ring, out_nvert, overflow)."""
+    out, n = ring, nvert
+    overflow = torch.zeros((), dtype=torch.bool, device=ring.device)
+    for i in range(4):
+        out, n, ovf = halfplane_clip_ring(out, n, quad[i], quad[(i + 1) % 4],
+                                          True)
+        overflow = overflow | ovf
+    out, n = dedupe_ring(out, n)
+    return out, n, overflow
+
+
+def difference_pieces_by_quad(ring, nvert, quad):
+    """Subtract a convex quad: 4 wedge pieces (some empty), piece i = ring
+    ∩ H_0 ∩ ... ∩ H_{i-1} ∩ H_iᶜ. Returns (pieces (4, KV, 2), pieces_n
+    (4,), overflow)."""
+    pieces_ring, pieces_n = [], []
+    overflow = torch.zeros((), dtype=torch.bool, device=ring.device)
+    cur, cur_n = ring, nvert
+    for i in range(4):
+        a, b = quad[i], quad[(i + 1) % 4]
+        out_r, out_n, ovf1 = halfplane_clip_ring(cur, cur_n, a, b, False)
+        out_r, out_n = dedupe_ring(out_r, out_n)
+        pieces_ring.append(out_r)
+        pieces_n.append(out_n)
+        cur, cur_n, ovf2 = halfplane_clip_ring(cur, cur_n, a, b, True)
+        cur, cur_n = dedupe_ring(cur, cur_n)
+        overflow = overflow | ovf1 | ovf2
+    return torch.stack(pieces_ring), torch.stack(pieces_n), overflow
 
 
 def oriented_rect(a, b, depth):

@@ -6,8 +6,9 @@ leading environment axis with ``torch.func.vmap``; ``lax.scan`` over time
 becomes a Python loop (forward for the rollouts, reverse for GAE and the
 success weights), and finished environments auto-reset to the initial
 state. Stage-boundary rewards are evaluated only on steps where some
-environment finished its land-use stage: one host sync per step
-(``if mask.any()``) stands in for the JAX batch-level ``lax.cond``.
+environment finished a stage, and only for those environments: a host
+sync per step and stage (``if mask.any()``) stands in for the JAX
+batch-level ``lax.cond``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,26 @@ import torch
 from torch.func import vmap
 
 from urban_tpu_torch.torchenv.state import FIELD_NAMES, EnvSpec, PlanState
-from urban_tpu_torch.torchenv.step import (FAILURE_BIT_NAMES, build_obs,
-                                           env_step, land_use_stage_reward)
+from urban_tpu_torch.torchenv.step import (FAILURE_BIT_NAMES,
+                                           batched_road_network_reward,
+                                           build_obs, env_step, feature_alive,
+                                           land_use_stage_reward,
+                                           packed_edge_ok)
+
+
+def packed_action_to_slots(spec: EnvSpec, state: PlanState,
+                           action: torch.Tensor) -> torch.Tensor:
+    """Translate the indices of a packed-layout action (build_obs_packed)
+    to slot indices; the rollout's slot-layout actions need no translation."""
+    alive = feature_alive(spec, state)
+    e_rank = torch.cumsum(packed_edge_ok(spec, state, alive).to(torch.int64),
+                          0)
+    n_rank = torch.cumsum(alive.to(torch.int64), 0)
+    edge_slot = torch.searchsorted(e_rank, (action[0] + 1).reshape(1).long())
+    node_slot = torch.searchsorted(n_rank, (action[1] + 1).reshape(1).long())
+    return torch.cat([torch.clamp(edge_slot, 0, spec.NE - 1),
+                      torch.clamp(node_slot, 0, spec.num_features - 1)]).to(
+        torch.int32)
 
 
 def make_batch_fns(spec: EnvSpec):
@@ -30,17 +49,40 @@ def make_batch_fns(spec: EnvSpec):
     return batch_obs, batch_step
 
 
+def _on_finished(fn, states: PlanState, finished: torch.Tensor,
+                 like: torch.Tensor) -> torch.Tensor:
+    """fn(states) at the rows where finished, zeros elsewhere. fn runs on
+    those rows only: each env's reward depends on its own state alone, and
+    most steps finish few envs (this also bounds the reward's memory)."""
+    out = torch.zeros_like(like)
+    idx = torch.nonzero(finished).squeeze(1)
+    out[idx] = fn(states.map(lambda x: x[idx])).to(out.dtype)
+    return out
+
+
 def apply_stage_rewards(spec: EnvSpec, states: PlanState, reward, info):
-    """Land-use stage rewards for the environments that just finished that
-    stage, computed only when at least one did (host-synced branch)."""
-    lu_fin = info['lu_done'] & ~info['failure']
+    """Stage-boundary rewards for the environments that just finished a
+    stage without failing: the land-use reward (also cached in the state)
+    and, where the scenario plans roads, the weighted road-network reward.
+    Each is computed when at least one env needs it (a host-synced branch,
+    for the JAX code's batch-level lax.cond)."""
+    fail = info['failure']
+    lu_fin = info['lu_done'] & ~fail
     if bool(lu_fin.any()):
-        lu_r = vmap(lambda s: land_use_stage_reward(spec, s))(states)
-    else:
-        lu_r = torch.zeros_like(reward)
-    reward = torch.where(lu_fin, lu_r, reward)
-    states = states.replace(land_use_reward=torch.where(
-        lu_fin, lu_r, states.land_use_reward))
+        lu_r = _on_finished(
+            vmap(lambda s: land_use_stage_reward(spec, s)), states, lu_fin,
+            reward)
+        reward = torch.where(lu_fin, lu_r, reward)
+        states = states.replace(land_use_reward=torch.where(
+            lu_fin, lu_r, states.land_use_reward))
+    if spec.road_network_weight > 0 and not spec.skip_road:
+        rd_fin = info['rd_done'] & ~fail
+        if bool(rd_fin.any()):
+            rd_r = _on_finished(
+                lambda s: spec.road_network_weight
+                * batched_road_network_reward(spec, s), states, rd_fin,
+                reward)
+            reward = torch.where(rd_fin, rd_r, reward)
     return states, reward
 
 

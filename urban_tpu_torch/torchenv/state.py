@@ -258,9 +258,9 @@ def build_env_spec(cfg, plc: PlanClient, max_steps: int = 60,
 
 
 def build_initial_state(spec: EnvSpec, plc: PlanClient,
-                        device='cpu') -> PlanState:
+                        device='cuda') -> PlanState:
     """Pack the scenario's initial plan into slot buffers (host side, then
-    moved to ``device``)."""
+    moved to ``device``: the card unless the caller asks for the CPU)."""
     table = plc._init_table
     NP, KV, NS, NPT, NE = spec.NP, spec.KV, spec.NS, spec.NPT, spec.NE
 

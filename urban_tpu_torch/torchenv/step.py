@@ -14,12 +14,12 @@ environment; the rollout lifts it over the environment batch with
     bookkeeping, incremental contiguity updates
   * road building as a segment type flip under the road-step budget
   * failure semantics as a FAIL_* bitmask driving FAILURE_REWARD termination
-  * stage-boundary rewards: life circle, greenness (land-use stage)
-
-Not ported yet, and refused with NotImplementedError rather than answered
-wrongly: the road-network reward (``road_network_weight > 0`` without
-``skip_road``), the concept reward (``concept_weight > 0`` with concepts)
-and the reference-layout observation ``build_obs_packed``.
+  * stage-boundary rewards: life circle, greenness and concepts at the end
+    of the land-use stage, the road-network reward at the end of the road
+    stage. The road-network reward is batched, not vmapped (its raster
+    face decomposition sweeps to a fixpoint with a host sync a sweep):
+    ``batched_road_network_reward`` takes a leading env axis
+  * the reference-layout observation ``build_obs_packed``
 
 DEVIATIONS from the exact host engine (the oracle in urban_tpu/envs) are
 those listed in urban_tpu/jaxenv/step.py, and they hold for this port as
@@ -31,21 +31,24 @@ they stand there (it computes what the JAX step computes):
   * shape metrics use ring-edge-direction rectangles instead of the exact
     minimum rotated rectangle (equal for convex parcels; MRR ties may pick
     a different, equally minimal rectangle)
+  * the road-network large-block penalty counts faces with a raster
+    decomposition on the scenario grid instead of exact polygonize (equal
+    for grid-aligned road networks; over MAX_DIAG diagonal roads in one
+    plan it under-blocks)
   * f32 arithmetic (with compensated/Dekker products on the sensitive
     predicates) vs the host's f64: borderline orientation / area-threshold
     / DP-keep decisions can flip on near-degenerate inputs
   * dedupe_ring compacts consecutive near-duplicates against the immediate
     predecessor, not the host's last-kept vertex
-The JAX list's raster large-block count belongs to the road-network reward,
-which this port does not run yet. Between this port and the JAX step, the
-fused multiply-adds that XLA forms are rounded the same way (see
-torchenv/geometry.py), but f32 sums are taken in another order, so float
-fields agree to rounding and a near-degenerate decision can in principle
-flip between the two.
+Between this port and the JAX step, the fused multiply-adds that XLA
+forms are rounded the same way (see torchenv/geometry.py), but f32 sums
+are taken in another order, so float fields agree to rounding and a
+near-degenerate decision can in principle flip between the two.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -92,18 +95,6 @@ FAILURE_BIT_NAMES = {
     FAIL_NO_MOVES: 'no_moves', FAIL_ROAD: 'road',
     FAIL_NO_ROAD_MOVES: 'no_road_moves',
 }
-
-
-def check_supported(spec: EnvSpec) -> None:
-    """Refuse configurations whose rewards this port does not compute."""
-    if spec.road_network_weight > 0 and not spec.skip_road:
-        raise NotImplementedError(
-            'the road-network reward (road_network_weight > 0 without '
-            'skip_road) is not ported to urban_tpu_torch yet')
-    if spec.concept_weight > 0 and spec.concepts:
-        raise NotImplementedError(
-            'the concept reward (concept_weight > 0) is not ported to '
-            'urban_tpu_torch yet')
 
 
 def _bit(bit: int, cond: torch.Tensor) -> torch.Tensor:
@@ -978,15 +969,423 @@ def greenness_reward(spec: EnvSpec, state: PlanState) -> torch.Tensor:
     return torch.where(is_res.any() & is_green.any(), reward, 0.0)
 
 
+def concept_reward(spec: EnvSpec, state: PlanState) -> torch.Tensor:
+    """Center/axis planning-concept adherence: per concept, the share of
+    the polygons near it (within its distance, or containing its center /
+    axis midpoint) whose land use the concept asks for; an axis also scores
+    the variety of those land uses and their spread along it."""
+    if not spec.concepts:
+        return torch.zeros_like(state.land_use_reward)
+    dev = state.poly_alive.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    cell = spec.cell_edge_length
+    alive = state.poly_alive
+    types = state.poly_type.long()
+    cents = state.poly_feat[1:3].transpose(0, 1)
+    segs, smask = vmap(jg.ring_segments)(state.poly_ring, state.poly_nvert)
+    total = torch.zeros_like(state.land_use_reward)
+    for (kind, cx, cy, ex, ey, distance, bitmask) in spec.concepts:
+        a = torch.tensor([cx, cy], **f32)
+        b = torch.tensor([ex, ey], **f32)
+        band = distance / cell
+        if kind == 0.0:
+            d = jg.point_segment_distance(a[None, None, :], segs[:, :, 0, :],
+                                          segs[:, :, 1, :])
+            probe = a
+        else:
+            d = torch.minimum(
+                jg.point_segment_distance(segs[:, :, 0, :], a[None, None, :],
+                                          b[None, None, :]),
+                jg.point_segment_distance(segs[:, :, 1, :], a[None, None, :],
+                                          b[None, None, :]))
+            probe = 0.5 * (a + b)
+        inside = vmap(lambda r, n: jg.point_in_ring(probe, r, n))(
+            state.poly_ring, state.poly_nvert)
+        dmin = torch.where(smask, d, jg.BIG).amin(dim=1)
+        in_region = alive & ((dmin <= band) | inside)
+        # (1 << clip(type, 0, 30)) & bitmask > 0, as a table over types
+        mask_int = int(bitmask)
+        related_tbl = torch.tensor([(mask_int >> t) & 1 == 1
+                                    for t in range(31)], device=dev)
+        related = in_region & related_tbl[types.clamp(0, 30)]
+        n_in = in_region.sum()
+        n_rel = related.sum()
+        ratio = torch.where(n_in > 0, n_rel / torch.clamp_min(n_in, 1), 0.0)
+        if kind == 0.0:
+            total = total + ratio
+            continue
+        n_related_types = bin(mask_int).count('1')
+        # the land uses present among the related polygons (the JAX code's
+        # scatter-max, as a one-hot compare that vmaps on every torch)
+        present = ((types[:, None] == jg.arange(city_config.NUM_TYPES,
+                                                types)[None, :])
+                   & related[:, None]).any(dim=0)
+        type_div = present.sum() / max(n_related_types, 1)
+        ab = b - a
+        denom = torch.clamp_min((ab * ab).sum(), 1e-9)
+        tproj = torch.clamp(jg.dot2(cents - a, ab[None, :]) / denom, 0.0, 1.0)
+        tmax = torch.where(related, tproj, -jg.BIG).amax()
+        tmin = torch.where(related, tproj, jg.BIG).amin()
+        expand = torch.where(n_rel > 0, tmax - tmin, 0.0)
+        total = total + torch.where(n_rel > 0,
+                                    (ratio + type_div + expand) / 3.0, 0.0)
+    return total / len(spec.concepts)
+
+
 def land_use_stage_reward(spec: EnvSpec, state: PlanState) -> torch.Tensor:
     """Weighted land-use reward at the stage boundary."""
-    check_supported(spec)
     r = torch.zeros_like(state.land_use_reward)
     if spec.life_circle_weight > 0:
         r = r + spec.life_circle_weight * life_circle_reward(spec, state)
     if spec.greenness_weight > 0:
         r = r + spec.greenness_weight * greenness_reward(spec, state)
+    if spec.concept_weight > 0 and spec.concepts:
+        r = r + spec.concept_weight * concept_reward(spec, state)
     return r
+
+
+# ---------------------------------------------------------------------------
+# road-network reward (batched: every function takes a leading env axis B)
+# ---------------------------------------------------------------------------
+
+ROAD_CHUNK = 8        # envs per pass of the (2NS, 2NS) endpoint tensors
+MAX_DIAG = 128        # non-axis-aligned roads tested per env (the JAX cap)
+DIAG_CHUNK = 4        # envs per pass of the (walks, diagonals) tensors
+_WALK_EPS = 4.8828125e-4   # 2**-11: walk lines clear of slice-point rationals
+
+
+def _reach_squaring(r: torch.Tensor) -> torch.Tensor:
+    """Transitive closure of (B, n, n) bool reachability by ceil(log2 n)
+    boolean matrix squarings (the JAX code's method). On the card the
+    product runs in bf16: 0/1 inputs are exact in bf16 and every partial
+    sum is of non-negative terms, so a positive sum stays >= 1 in any
+    accumulation precision (allow_bf16_reduced_precision_reduction
+    included) and '> 0.5' is exact."""
+    dt = torch.bfloat16 if r.is_cuda else torch.float32
+    iters = max(int(math.ceil(math.log2(max(r.shape[-1], 2)))), 1)
+    for _ in range(iters):
+        rf = r.to(dt)
+        r = r | (torch.bmm(rf, rf) > 0.5)
+    return r
+
+
+def _min_label_propagation(r: torch.Tensor, active: torch.Tensor):
+    """Component-minimum labels of the (B, n, n) bool graph r by min-label
+    propagation with pointer jumping, repeated until no label changes (one
+    host sync per round). Every label is a member of its node's component
+    at every round, and a round changes nothing only when each component
+    carries one label, which is then its minimum member."""
+    n = r.shape[-1]
+    ar = jg.arange(n, r)
+    lab = torch.where(active, ar, n)
+    while True:
+        new = torch.minimum(
+            lab, torch.where(r, lab[:, None, :], n).amin(dim=-1))
+        jumped = torch.gather(new, 1, new.clamp(max=n - 1))
+        new = torch.where(new < n, torch.minimum(new, jumped), n)
+        if torch.equal(new, lab):
+            return lab
+        lab = new
+
+
+def _components_min_label(adj: torch.Tensor, active: torch.Tensor,
+                          method: str = None) -> torch.Tensor:
+    """Connected-component labels (minimum member index) of the batched
+    undirected graphs adj (B, n, n) over the active nodes (B, n); inactive
+    nodes get n. The labels are unique, so any exact method gives the
+    JAX code's: 'squaring' (its boolean matrix squaring; the default on
+    the card, a fixed number of tensor-core products and no host sync) or
+    'propagation' (the default on the CPU, O(n^2) a round instead of
+    O(n^3) a squaring)."""
+    n = adj.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=adj.device)
+    r = (adj & active[:, :, None] & active[:, None, :]) \
+        | (eye & active[:, :, None])
+    method = method or ('squaring' if adj.is_cuda else 'propagation')
+    if method == 'propagation':
+        return _min_label_propagation(r, active)
+    r = _reach_squaring(r)
+    labels = torch.where(r, jg.arange(n, r), n).amin(dim=-1)
+    return torch.where(active, labels, n)
+
+
+def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, m, k) @ (B, k, n) of 0/1 values, > 0.5: integer sums below 2**24
+    of 0/1 terms, exact in f32 whether or not TF32 is allowed."""
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32)) > 0.5
+
+
+def _seg_scan_min(v, start, dim: int, reverse: bool):
+    """Segmented directional inclusive min-scan along dim: at each cell,
+    the minimum over the cells since the last segment start (start ==
+    True) at or before it. The JAX code's associative_scan with the
+    operator (x, y) -> (y.start ? y.v : min(x.v, y.v), x.start | y.start),
+    as a log-step (Hillis–Steele) doubling; min is exact and idempotent,
+    so the result is the JAX scan's bit for bit."""
+    if reverse:
+        v, start = v.flip(dim), start.flip(dim)
+    n = v.shape[dim]
+    d = 1
+    while d < n:
+        v_hi, f_hi = v.narrow(dim, d, n - d), start.narrow(dim, d, n - d)
+        v_lo, f_lo = v.narrow(dim, 0, n - d), start.narrow(dim, 0, n - d)
+        v = torch.cat([v.narrow(dim, 0, d),
+                       torch.where(f_hi, v_hi, torch.minimum(v_lo, v_hi))],
+                      dim)
+        start = torch.cat([start.narrow(dim, 0, d), f_hi | f_lo], dim)
+        d *= 2
+    return v.flip(dim) if reverse else v
+
+
+def _flood_min(vals, gates, max_sweeps: int):
+    """Sweep the four directional segmented min-scans to a fixpoint, batched:
+    sweeps repeat until no env changes (one host sync a sweep), with the
+    JAX while_loop's backstop of max_sweeps. A sweep leaves an env at its
+    fixpoint unchanged, so each env gets exactly its own fixpoint.
+    gates = can-receive-from-(left, right, up, down), each (B, RC, CC)."""
+    g_l, g_r, g_u, g_d = (~g for g in gates)
+
+    def sweep(v):
+        v = _seg_scan_min(v, g_l, 2, False)
+        v = _seg_scan_min(v, g_r, 2, True)
+        v = _seg_scan_min(v, g_u, 1, False)
+        return _seg_scan_min(v, g_d, 1, True)
+
+    v = sweep(vals)
+    for _ in range(max_sweeps):
+        v2 = sweep(v)
+        if torch.equal(v2, v):
+            break
+        v = v2
+    return v
+
+
+def _diag_blocks(seg, diag, n_diag, xwalk, ywalk):
+    """Walks blocked by non-axis-aligned roads, for envs with at least one:
+    (block_r (B, RC, CC-1), block_d (B, RC-1, CC)) of the proper crossings
+    between each walk and the env's first MAX_DIAG diagonal roads (the JAX
+    cap: a network with more would under-block, as there)."""
+    B, NS = diag.shape
+    RC, CC = ywalk.shape[0], xwalk.shape[0]
+    block_r = torch.zeros(B, RC, CC - 1, dtype=torch.bool, device=seg.device)
+    block_d = torch.zeros(B, RC - 1, CC, dtype=torch.bool, device=seg.device)
+    cxg, cyg = torch.meshgrid(xwalk, ywalk, indexing='xy')
+    centers = torch.stack([cxg, cyg], dim=-1)               # (RC, CC, 2)
+    walks = ((centers[:, :-1].reshape(-1, 2), centers[:, 1:].reshape(-1, 2)),
+             (centers[:-1].reshape(-1, 2), centers[1:].reshape(-1, 2)))
+    idx = torch.nonzero(n_diag > 0).squeeze(1)
+    for chunk in idx.split(DIAG_CHUNK):
+        # entries beyond an env's diagonal count are masked out, so the
+        # buffer is cut to the chunk's largest count (at most MAX_DIAG)
+        k = min(int(n_diag[chunk].max()), MAX_DIAG)
+        packed = vmap(lambda f, v: jg.rank_compact(f, v, MAX_DIAG))(
+            diag[chunk], seg[chunk].reshape(-1, NS, 4))[:, :k]
+        dvalid = jg.arange(k, seg)[None, :] < n_diag[chunk][:, None]
+        da = packed[:, None, :, 0:2]
+        db = packed[:, None, :, 2:4]
+        out = []
+        for p1, p2 in walks:
+            hit = jg.segments_cross(p1[None, :, None, :], p2[None, :, None, :],
+                                    da, db)
+            out.append((hit & dvalid[:, None, :]).any(dim=-1))
+        block_r[chunk] = out[0].reshape(-1, RC, CC - 1)
+        block_d[chunk] = out[1].reshape(-1, RC - 1, CC)
+    return block_r, block_d
+
+
+def _large_block_count(spec: EnvSpec, seg: torch.Tensor,
+                       is_road: torch.Tensor) -> torch.Tensor:
+    """(B,) faces of the road network with a bounding box over 800 m, by
+    the JAX code's raster face decomposition on the scenario grid.
+
+    Cell centers are face samples; two 4-adjacent centers share a face iff
+    the walk between them crosses no road properly (dangling tails do not
+    separate faces, as in polygonize). Components touching the raster
+    border are the outer region. Walk lines sit _WALK_EPS off the
+    half-integers, so that a chain node of a collinear road never lies on
+    one. Axis-aligned roads block walks through row-mask x column-mask
+    products; other roads through the general proper-crossing test
+    (_diag_blocks). seg: (B, NS, 2, 2); is_road: (B, NS)."""
+    CC = int(spec.grid_cols)
+    RC = int(spec.grid_rows)
+    cell = spec.cell_edge_length
+    dev = seg.device
+    B = seg.shape[0]
+    ax, ay = seg[..., 0, 0], seg[..., 0, 1]
+    bx, by = seg[..., 1, 0], seg[..., 1, 1]
+    adx, ady = torch.abs(bx - ax), torch.abs(by - ay)
+    vert = (adx <= 1e-6) & (ady > 1e-6)
+    horiz = (ady <= 1e-6) & (adx > 1e-6)
+    diag = is_road & ~vert & ~horiz & (ady + adx > 1e-6)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    ywalk = torch.arange(RC, **f32) + 0.5 + _WALK_EPS    # horizontal lines
+    xwalk = torch.arange(CC, **f32) + 0.5 + _WALK_EPS    # vertical lines
+
+    # vertical roads x rightward walks
+    ylo, yhi = torch.minimum(ay, by), torch.maximum(ay, by)
+    row_v = (ylo[:, None, :] < ywalk[None, :, None]) \
+        & (ywalk[None, :, None] < yhi[:, None, :]) \
+        & (vert & is_road)[:, None, :]                    # (B, RC, NS)
+    col_v = (ax[:, :, None] > xwalk[None, None, :-1]) \
+        & (ax[:, :, None] < (xwalk[:-1] + 1.0)[None, None, :])  # (B, NS, CC-1)
+    block_r = _bool_matmul(row_v, col_v)                  # (B, RC, CC-1)
+
+    # horizontal roads x downward walks
+    xlo, xhi = torch.minimum(ax, bx), torch.maximum(ax, bx)
+    col_h = (xlo[:, None, :] < xwalk[None, :, None]) \
+        & (xwalk[None, :, None] < xhi[:, None, :]) \
+        & (horiz & is_road)[:, None, :]                   # (B, CC, NS)
+    row_h = (ay[:, :, None] > ywalk[None, None, :-1]) \
+        & (ay[:, :, None] < (ywalk[:-1] + 1.0)[None, None, :])  # (B, NS, RC-1)
+    block_d = _bool_matmul(col_h, row_h).transpose(1, 2)  # (B, RC-1, CC)
+
+    # the JAX code's cond(n_diag > 0): the diagonal branch leaves an env
+    # without diagonal roads as it was, so it runs for the envs with some
+    n_diag = diag.sum(dim=1)
+    if bool((n_diag > 0).any()):
+        br, bd = _diag_blocks(seg, diag, n_diag, xwalk, ywalk)
+        block_r, block_d = block_r | br, block_d | bd
+
+    F = torch.nn.functional
+    pass_r = F.pad(~block_r, (0, 1), value=False)
+    pass_l = F.pad(~block_r, (1, 0), value=False)
+    pass_d = F.pad(~block_d, (0, 0, 0, 1), value=False)
+    pass_u = F.pad(~block_d, (0, 0, 1, 0), value=False)
+
+    big = RC * CC
+    ids = torch.arange(big, device=dev).reshape(1, RC, CC).expand(B, RC, CC)
+    labels = _flood_min(ids, (pass_l, pass_r, pass_u, pass_d), big)
+
+    # per-face extents: min/max coordinates flooded within equal labels.
+    # The four floods run as one min-flood of (x, y, -x, -y): each has the
+    # same gates, and a fixpoint does not depend on what floods beside it
+    lr = F.pad(labels[:, :, 1:], (0, 1), value=big)
+    ll = F.pad(labels[:, :, :-1], (1, 0), value=big)
+    ld = F.pad(labels[:, 1:], (0, 0, 0, 1), value=big)
+    lu = F.pad(labels[:, :-1], (0, 0, 1, 0), value=big)
+    gates = tuple(g.repeat(4, 1, 1) for g in (
+        pass_l & (ll == labels), pass_r & (lr == labels),
+        pass_u & (lu == labels), pass_d & (ld == labels)))
+    gx = torch.arange(CC, **f32)[None, :].expand(RC, CC)
+    gy = torch.arange(RC, **f32)[:, None].expand(RC, CC)
+    coords = torch.stack([gx, gy, -gx, -gy])[:, None].expand(4, B, RC, CC)
+    ext = _flood_min(coords.reshape(4 * B, RC, CC), gates,
+                     big).reshape(4, B, RC, CC)
+    minx, miny, maxx, maxy = ext[0], ext[1], -ext[2], -ext[3]
+
+    is_repr = labels == ids
+    touches_border = (minx == 0) | (miny == 0) | (maxx == CC - 1) | \
+        (maxy == RC - 1)
+    # face width/height: cell spans + the bounding road on each side
+    w_m = (maxx - minx + 1.0) * cell
+    h_m = (maxy - miny + 1.0) * cell
+    large = is_repr & ~touches_border & ((w_m > 800.0) | (h_m > 800.0))
+    return large.sum(dim=(1, 2))
+
+
+def _endpoint_pairs(seg: torch.Tensor, valid_e: torch.Tensor):
+    """(B, 2NS, 2NS) bool: road endpoints i, j with norm(end_i - end_j) <=
+    MERGE_TOL, rounded as the reference rounds it. The exact norm is taken
+    only where both coordinate differences are within 2 MERGE_TOL: beyond
+    that the norm exceeds MERGE_TOL whatever the rounding, so the result
+    is the reference's without its (2NS, 2NS, 2) tensor."""
+    end = seg.reshape(seg.shape[0], -1, 2)
+    dx = end[:, :, None, 0] - end[:, None, :, 0]
+    dy = end[:, :, None, 1] - end[:, None, :, 1]
+    near = (torch.abs(dx) <= 2 * MERGE_TOL) \
+        & (torch.abs(dy) <= 2 * MERGE_TOL) \
+        & valid_e[:, :, None] & valid_e[:, None, :]
+    b, i, j = torch.nonzero(near, as_tuple=True)
+    d = torch.stack([dx[b, i, j], dy[b, i, j]], dim=-1)
+    pair = torch.zeros_like(near)
+    pair[b, i, j] = jg.norm(d) <= MERGE_TOL
+    return pair
+
+
+def _road_network_reward_chunk(spec: EnvSpec, seg, seg_alive, seg_type):
+    NS = spec.NS
+    cell = spec.cell_edge_length
+    B = seg.shape[0]
+    ar = jg.arange(NS, seg)
+    is_road = seg_alive & (seg_type == city_config.ROAD)
+    valid_e = torch.repeat_interleave(is_road, 2, dim=1)
+    pair = _endpoint_pairs(seg, valid_e)
+
+    # segment-touch adjacency (any endpoint coincidence)
+    adj = pair.reshape(B, NS, 2, NS, 2).any(dim=4).any(dim=2)
+    labels = _components_min_label(adj, is_road)
+    n_comp = (is_road & (labels == ar)).sum(dim=1)
+    connectivity = 1.0 / torch.clamp_min(n_comp, 1)
+
+    lengths = jg.norm(seg[:, :, 1] - seg[:, :, 0])
+    road_len = torch.where(is_road, lengths, 0.0)
+    road_km = road_len.sum(dim=1) * cell / 1000.0
+    density = road_km / (spec.community_area / 1e6)
+    density_reward = density / 10.0
+
+    deg = pair.sum(dim=2)                            # endpoint multiplicity
+    num_dead = (valid_e & (deg == 1)).sum(dim=1)
+    dead_end_penalty = 1.0 / (num_dead + 1.0)
+
+    # false-node merging: segments sharing a degree-2 node form one road
+    deg2 = deg == 2
+    chain_pair = pair & deg2[:, :, None] & deg2[:, None, :]
+    chain_adj = chain_pair.reshape(B, NS, 2, NS, 2).any(dim=4).any(dim=2) \
+        & ~torch.eye(NS, dtype=torch.bool, device=seg.device)
+    chain_labels = _components_min_label(chain_adj, is_road)
+    # merged length of each chain at its label: the JAX code's f32 one-hot
+    # product, as a masked sum (no matmul, so no TF32 question)
+    onehot = (chain_labels[:, :, None] == ar) & is_road[:, :, None]
+    merged_len = torch.where(onehot, road_len[:, :, None], 0.0).sum(dim=1)
+    is_repr = is_road & (chain_labels == ar)
+    merged_m = merged_len * cell
+    num_short = (is_repr & (merged_m < 100.0)).sum(dim=1)
+    num_long = (is_repr & (merged_m > 600.0)).sum(dim=1)
+    short_penalty = 1.0 / (num_short + 1.0)
+    long_penalty = 1.0 / (num_long + 1.0)
+
+    num_large = _large_block_count(spec, seg, is_road)
+    block_penalty = 1.0 / (num_large + 1.0)
+
+    reward = (connectivity + density_reward + dead_end_penalty
+              + short_penalty + long_penalty + block_penalty) / 6.0
+    counts = {'components': n_comp, 'dead_ends': num_dead,
+              'short': num_short, 'long': num_long, 'large_blocks': num_large}
+    return reward, counts
+
+
+def batched_road_network_reward(spec: EnvSpec, states: PlanState,
+                                with_counts: bool = False):
+    """Road-network quality of a batch of states (leading env axis B):
+    connectivity by connected components of the segment-touch graph,
+    road density, dead ends, short/long penalties on false-node-merged
+    roads (degree-2 chains) and the large-block penalty of the raster face
+    decomposition, each term the JAX road_network_reward's. Not vmappable
+    (its fixpoint loops sync the host); ROAD_CHUNK envs a pass bound the
+    memory. With with_counts, also the integer terms by name, (B,) each."""
+    if torch._C._functorch.is_batchedtensor(states.seg):
+        raise RuntimeError('batched_road_network_reward takes a batch of '
+                           'states and cannot run under vmap')
+    rewards, counts = [], []
+    for i in range(0, states.seg.shape[0], ROAD_CHUNK):
+        s = slice(i, i + ROAD_CHUNK)
+        r, c = _road_network_reward_chunk(spec, states.seg[s],
+                                          states.seg_alive[s],
+                                          states.seg_type[s])
+        rewards.append(r)
+        counts.append(c)
+    reward = torch.cat(rewards)
+    if not with_counts:
+        return reward
+    return reward, {k: torch.cat([c[k] for c in counts]) for k in counts[0]}
+
+
+def road_network_reward(spec: EnvSpec, state: PlanState) -> torch.Tensor:
+    """The road-network reward of one state: the batched form on a batch
+    of one. Under vmap it raises; the rollout calls the batched form."""
+    return batched_road_network_reward(
+        spec, state.map(lambda x: x[None]))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1094,6 +1493,51 @@ def build_obs(spec: EnvSpec, state: PlanState):
             stage_oh)
 
 
+def packed_edge_ok(spec: EnvSpec, state: PlanState, alive: torch.Tensor):
+    """(NE,) alive edges whose two endpoints are alive features."""
+    v0, v1 = endpoint_lookup(state.edge, alive[None, :])
+    return state.edge_alive & v0[0] & v1[0]
+
+
+def build_obs_packed(spec: EnvSpec, state: PlanState):
+    """Reference-layout observation: alive features packed to the front and
+    padded to (max_num_nodes, max_num_edges), the layout of the host
+    ObservationExtractor (for host-parity checks and plan export; the
+    rollout uses the slot layout of build_obs)."""
+    alive = feature_alive(spec, state)
+    feats = _node_features(spec, state)
+    mnn, mne = spec.max_num_nodes, spec.max_num_edges
+
+    n_alive = alive.sum()
+    perm = torch.argsort((~alive).to(torch.int8), stable=True)
+    node_mask = jg.arange(mnn, alive) < n_alive
+    gather_idx = perm[:mnn]
+    nodes = torch.where(node_mask[:, None], feats[gather_idx], 0.0)
+
+    pad_node = mnn - 1
+    packed_lookup = torch.where(alive, torch.cumsum(alive.to(torch.int64), 0)
+                                - 1, pad_node)
+    rd_mask = node_mask & road_mask(spec, state)[gather_idx]
+
+    e_ok = packed_edge_ok(spec, state, alive)
+    n_edges = e_ok.sum()
+    eperm = torch.argsort((~e_ok).to(torch.int8), stable=True)[:mne]
+    edge_mask = jg.arange(mne, alive) < n_edges
+    remapped = jg.take(packed_lookup, state.edge.reshape(-1)).reshape(
+        state.edge.shape).to(torch.int32)
+    edges = torch.where(edge_mask[:, None], remapped[eperm], pad_node).to(
+        torch.int32)
+
+    numerical, cur, stage_oh, t = _numerical_and_current(spec, state)
+    in_lu = state.stage == 0
+    in_rd = state.stage == 1
+    lu_mask_slots = land_use_mask(spec, state, t) & e_ok
+    lu_mask = edge_mask & lu_mask_slots[eperm] & in_lu
+    rd_mask = rd_mask & in_rd
+    return (numerical, nodes, edges, cur, node_mask, edge_mask, lu_mask,
+            rd_mask, stage_oh)
+
+
 # ---------------------------------------------------------------------------
 # full step
 # ---------------------------------------------------------------------------
@@ -1106,7 +1550,6 @@ def env_step(spec: EnvSpec, state: PlanState, action: torch.Tensor,
     With compute_rewards=False the stage-boundary reward is left to the
     caller (rollout.apply_stage_rewards evaluates it only for steps where
     some episode finished)."""
-    check_supported(spec)
     in_lu = state.stage == 0
     in_rd = state.stage == 1
 
@@ -1150,16 +1593,19 @@ def env_step(spec: EnvSpec, state: PlanState, action: torch.Tensor,
     nxt = nxt.replace(poly_type=poly_type, seg_type=seg_type, stage=stage,
                       total_road_steps=total_road_steps)
 
-    # rewards at stage boundaries; the road-network reward is refused by
-    # check_supported, so the road stage ends with reward 0
+    # rewards at stage boundaries
+    road_reward_val = torch.zeros_like(nxt.land_use_reward)
     if compute_rewards:
         lu_reward_val = land_use_stage_reward(spec, nxt)
+        if spec.road_network_weight > 0 and not spec.skip_road:
+            road_reward_val = spec.road_network_weight * \
+                road_network_reward(spec, nxt)
     else:
         lu_reward_val = torch.zeros_like(nxt.land_use_reward)
 
     land_use_reward = torch.where(lu_done, lu_reward_val, nxt.land_use_reward)
     reward = torch.where(lu_done, lu_reward_val, 0.0)
-    reward = torch.where(rd_done, 0.0, reward)
+    reward = torch.where(rd_done, road_reward_val, reward)
 
     # failure / dead-state checks
     t_next = pending_land_use_type(spec, nxt)
