@@ -18,12 +18,18 @@ of minibatch 256) and a 16-env greedy evaluation. Then the road and
 concept rewards on the card against the CPU, a road-stage lockstep of the
 grid scenario on the card against the CPU, and one full grid PPO
 train_iteration with land use and roads (192 envs x 120 steps, 4 epochs of
-minibatch 256), whose road head must learn. The launch counts show that
-each path went through its kernels. One line per phase; the line before
-the last is one JSON object describing each kernel, the last line is
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-there is no CUDA device or any check fails. About 8-10 minutes on an H100.
+minibatch 256), whose road head must learn. The MLP encoder (no message
+passing, no kernel) runs on the card against the CPU, forward and one PPO
+loss gradient. Then the grid's two-phase run_training (land use, the
+freeze of the best greedy plan, roads) of one iteration a phase, its
+resume from the phase-2 checkpoint, and both kernels at the frozen plan's
+graph. The launch counts show that each path went through its kernels.
+One line per phase; the line before the last is one JSON object describing
+each kernel, the last line is {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, when there is no CUDA device or any check
+fails. About 11 minutes on an H100.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,6 +59,12 @@ ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 50, 16
 # the grid trainer's own batch and window (urban_tpu/cfg grid.yaml)
 GRID_ENVS, GRID_LEN = 192, 120
 ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
+# the grid's two-phase run: cfg.train() / cfg.finetune() halve the episode
+# cap to 60 steps, which holds a land-use episode (about 48 steps) and a
+# road one; the rollout is host-bound whatever the batch, so the envs are
+# few, and one greedy eval env is enough (every greedy episode from the
+# initial state is the same)
+TWO_PHASE_SEED, TWO_PHASE_ENVS, TWO_PHASE_EVAL_ENVS, TWO_PHASE_LEN = 0, 8, 1, 60
 
 
 def phase(name, t0, **kv):
@@ -60,19 +72,22 @@ def phase(name, t0, **kv):
                       **kv}), flush=True)
 
 
-def check_kernels(kb, segment_ops, dev, real_obs, t0):
+def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
+                  random_graphs=True):
     """Phase 3: the forward and the backward kernel against their plain
-    versions at every shape of kb.SHAPES, timed on the random graphs, and
-    on a scenario's real graph where real_obs has one for the shape.
-    Returns the times by shape and the largest errors; the inputs, some of
-    them GB, are freed on return, before the paths whose memory is
-    measured."""
+    versions at every shape of `shapes` (kb.SHAPES), timed on random
+    graphs (unless random_graphs is False), and on a scenario's real graph
+    where real_obs has one for the shape. Returns the times by shape and
+    the largest errors; the inputs, some of them GB, are freed on return,
+    before the paths whose memory is measured."""
     B = kb.B
     rng = np.random.default_rng(0)
     fwd, bwd, fwd_err, bwd_err = {}, {}, 0.0, 0.0
-    for shape, e, n, d in kb.SHAPES:
-        graphs = {'random_bipartite_30pct_masked': kb.random_graph(rng, B, e,
-                                                                   n)}
+    for shape, e, n, d in shapes or kb.SHAPES:
+        graphs = {}
+        if random_graphs:
+            graphs['random_bipartite_30pct_masked'] = kb.random_graph(
+                rng, B, e, n)
         if shape in real_obs:
             gname, o = real_obs[shape]
             if tuple(o[2].shape[1:2]) + tuple(o[4].shape[1:2]) != (e, n):
@@ -131,7 +146,10 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0):
                     'bound_ms': kb.bound_ms(kb.forward_bytes(edges, mask, n,
                                                              d))}
             phase('segment_mean_vs_plain', t0, shape=shape, graph=gname,
-                  BEND=[B, e, n, d], max_abs_err=err, bitwise_repeat=True,
+                  BEND=[B, e, n, d], segment_mean_fits=bool(
+                      segment_ops.load_library('segment_mean')
+                      .segment_mean_fits(n, e)),
+                  max_abs_err=err, bitwise_repeat=True,
                   counts_equal=True, same_bits_as_cpu_plain=same_bits,
                   **times)
             # the backward, bit for bit: (0 + s_u) + s_v with one IEEE
@@ -178,6 +196,38 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0):
                   plan=segment_ops.backward_plan(n, d)._asdict(),
                   max_abs_err=err, **checks, **times)
     return fwd, bwd, fwd_err, bwd_err
+
+
+def ppo_grads_card_vs_cpu(m_gpu, m_cpu, obs, actions, log_probs, dev):
+    """One PPO loss backward of the same minibatch (obs, actions, and
+    seeded returns, advantages, weights and old log-probs near log_probs)
+    on the card and on the CPU, each parameter's gradient within
+    TOL_GRAD_REL x its largest CPU gradient + TOL_GRAD_ABS. Returns (error
+    by parameter, bound by parameter, the card's gradients)."""
+    from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
+    B = actions.shape[0]
+    grng = np.random.default_rng(3)
+    returns, adv, noise = (torch.as_tensor(grng.normal(size=(B, 1)),
+                                           dtype=torch.float32)
+                           for _ in range(3))
+    exps = torch.as_tensor(grng.random(B) < 0.7, dtype=torch.float32)
+    valid = torch.as_tensor(grng.random(B) < 0.8, dtype=torch.float32)
+    fixed = log_probs[:, None].cpu() + 0.3 * noise
+    grads = {}
+    for where, model, d in (('card', m_gpu, dev), ('cpu', m_cpu, 'cpu')):
+        loss, _ = ppo_loss(model, tuple(o.to(d) for o in obs),
+                           actions.to(d), returns.to(d), adv.to(d),
+                           fixed.to(d), exps.to(d), PPOConfig(), valid.to(d))
+        loss.backward()
+        grads[where] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    err = {k: float((grads['card'][k] - g).abs().max())
+           for k, g in grads['cpu'].items()}
+    bound = {k: TOL_GRAD_REL * float(g.abs().max()) + TOL_GRAD_ABS
+             for k, g in grads['cpu'].items()}
+    bad = {k: (e, bound[k]) for k, e in err.items() if not e <= bound[k]}
+    if bad:
+        raise AssertionError(f'PPO gradients card vs cpu: {bad}')
+    return err, bound, grads['card']
 
 
 def lockstep(spec, s_cpu, s_gpu, n_steps, choose):
@@ -323,6 +373,166 @@ def road_lockstep(spec, init_np, dev):
             'road_rewards': final.tolist()}
 
 
+def two_phase_grid(dev, layers):
+    """The grid's two-phase run_training on the card: TWO_PHASE_ENVS envs
+    x TWO_PHASE_LEN steps, one iteration of land use (skip_road with
+    keep_boundaries), the freeze of the best greedy plan with a warm start,
+    one iteration of roads. Each collect, update and eval of each phase is
+    counted on its own: rollout_len x layers segment means for a collect
+    and for an eval, minibatch steps x layers forward and backward for an
+    update. Every parameter must move in phase 2 but the land-use head's,
+    whose gradient is exactly zero in a road-only phase (as the road
+    head's is on HLG); the road rewards lie in (0, 1]. Then run_training
+    resumes the phase-2 checkpoint, which must rebuild the same spec and
+    the same parameters. Returns the phase's record."""
+    from urban_tpu_torch.host.utils.config import Config
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    from urban_tpu_torch.torchenv.step import road_mask
+    T = trainer_mod.Trainer
+    counted, stats, rec = [], {}, {}
+    orig = {n: getattr(T, n) for n in ('collect', 'update', 'eval_agent',
+                                       'train_iteration')}
+    orig_freeze = trainer_mod.freeze_land_use_trainer
+
+    def counting(name):
+        def wrapper(self, *a, **k):
+            segment_ops.reset_launches()
+            t = time.time()
+            out = orig[name](self, *a, **k)
+            torch.cuda.synchronize()
+            counted.append({'phase': self.phase, 'part': name,
+                            'seconds': time.time() - t,
+                            'launches': dict(segment_ops.launches)})
+            if name == 'collect':
+                ok = out.dones & ~out.failures
+                rec.setdefault(f'rewards_{self.phase}', []).append(
+                    out.rewards[ok].cpu())
+            if name == 'eval_agent':
+                rec[f'eval_{self.phase}'] = out
+            return out
+        return wrapper
+
+    def iteration(self, it, do_eval=True):
+        st = orig['train_iteration'](self, it, do_eval)
+        stats[self.phase] = {
+            't_sample_s': st.sample_time, 't_update_s': st.update_time,
+            'episodes': st.episodes, 'failures': st.failures,
+            'failure_causes': st.failure_causes,
+            'mean_episode_reward': st.mean_episode_reward,
+            'eval_reward': st.eval_reward,
+            'graph': [self.spec.NE, self.spec.num_features],
+            'caps': {k: getattr(self.spec, k)
+                     for k in ('NP', 'NS', 'NPT', 'NE')}}
+        return st
+
+    def freeze(trainer, table, warm_start_params=None):
+        rec['phase1_spec'] = {'skip_road': trainer.spec.skip_road,
+                              'keep_boundaries': trainer.spec.keep_boundaries}
+        rec['phase1_peak_bytes'] = torch.cuda.max_memory_allocated(dev)
+        from urban_tpu_torch.host import city_config
+        rec['frozen_boundaries'] = int(
+            (table.alive_mask_of(city_config.BOUNDARY)).sum())
+        out = orig_freeze(trainer, table, warm_start_params)
+        # phase 1's model, optimizer and env batch are freed by now
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec['road_mask'] = int(road_mask(trainer.spec,
+                                         trainer.init_state).sum())
+        rec['total_road_steps'] = int(trainer.init_state.total_road_steps)
+        rec['warm_start'] = trainer.warm_start
+        rec['before'] = {k: p.detach().clone()
+                         for k, p in trainer.model.named_parameters()}
+        return out
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        for name in orig:
+            setattr(T, name, iteration if name == 'train_iteration'
+                    else counting(name))
+        trainer_mod.freeze_land_use_trainer = freeze
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        try:
+            trainer = trainer_mod.run_training(
+                Config('grid', TWO_PHASE_SEED, root_dir=run_dir), 1,
+                TWO_PHASE_ENVS, separate_train=True,
+                eval_envs=TWO_PHASE_EVAL_ENVS, rollout_len=TWO_PHASE_LEN,
+                device=dev)
+        finally:
+            for name, fn in orig.items():
+                setattr(T, name, fn)
+            trainer_mod.freeze_land_use_trainer = orig_freeze
+        run_seconds = time.time() - t
+        rec['phase2_peak_bytes'] = torch.cuda.max_memory_allocated(dev)
+        final = os.path.join(trainer.cfg.model_dir, 'phase2_final.pt')
+        if trainer.phase != 2 or not os.path.exists(final):
+            raise AssertionError(f'phase 2 did not run: phase '
+                                 f'{trainer.phase}, phase-1 eval '
+                                 f'{rec.get("eval_1")}')
+        if rec['phase1_spec'] != {'skip_road': True,
+                                  'keep_boundaries': True}:
+            raise AssertionError(f'phase 1 ran {rec["phase1_spec"]}')
+        if not (rec['road_mask'] > 0 and rec['total_road_steps'] > 0
+                and rec['frozen_boundaries'] > 0):
+            raise AssertionError(f'the frozen plan has no road candidates: '
+                                 f'{rec}')
+        cfg = trainer.cfg
+        n = TWO_PHASE_ENVS * TWO_PHASE_LEN
+        mb_steps = cfg.num_optim_epoch * max(n // min(cfg.mini_batch_size,
+                                                      n), 1)
+        expect = {'collect': (TWO_PHASE_LEN * layers, 0),
+                  'update': (mb_steps * layers, mb_steps * layers),
+                  'eval_agent': (TWO_PHASE_LEN * layers, 0)}
+        got = [(c['phase'], c['part'], (c['launches']['segment_mean'],
+                                        c['launches']['segment_mean_backward']))
+               for c in counted]
+        want = [(ph, part, expect[part]) for ph in (1, 2)
+                for part in ('collect', 'update', 'eval_agent')]
+        if got != want:
+            raise AssertionError(f'two-phase launches {got} != {want}')
+        moved = {k: not torch.equal(p, rec['before'][k])
+                 for k, p in trainer.model.named_parameters()}
+        wrong = sorted(k for k, m in moved.items()
+                       if m == k.startswith('land_use_head.'))
+        if wrong or not any(m for k, m in moved.items()
+                            if k.startswith('road_head.')):
+            raise AssertionError(f'phase-2 parameters moved wrongly: {wrong}')
+        copied, total = rec['warm_start']
+        if not copied == total == len(moved):
+            raise AssertionError(f'warm start {copied}/{total}')
+        road = torch.cat(rec['rewards_2'])
+        eval_2 = rec['eval_2'][0]
+        if road.numel() < 1 or not bool(((road > 0) & (road <= 1)).all()) \
+                or not 0 < eval_2 <= 1:
+            raise AssertionError(f'phase-2 road rewards {road.tolist()}, '
+                                 f'eval {eval_2}')
+        spec2 = trainer.spec
+        init2 = trainer.init_state.map(lambda x: x.cpu())
+        params = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        del trainer
+        # the resume from the phase-2 checkpoint, in another run directory
+        t = time.time()
+        with tempfile.TemporaryDirectory() as resume_dir:
+            again = trainer_mod.run_training(
+                Config('grid', TWO_PHASE_SEED, root_dir=resume_dir), 1,
+                TWO_PHASE_ENVS, separate_train=True,
+                eval_envs=TWO_PHASE_EVAL_ENVS, rollout_len=TWO_PHASE_LEN,
+                resume=final, device=dev)
+            same = (again.phase == 2 and again.start_iteration == 2
+                    and dataclasses.asdict(again.spec)
+                    == dataclasses.asdict(spec2)
+                    and all(torch.equal(v, params[k]) for k, v
+                            in again.model.state_dict().items()))
+            del again
+        if not same:
+            raise AssertionError('the resume from phase2_final rebuilt '
+                                 'another spec or other parameters')
+        resume_seconds = time.time() - t
+    rec.update(run_seconds=run_seconds, resume_seconds=resume_seconds,
+               counted=counted, stats=stats, spec2=spec2, init2=init2,
+               road_rewards=road, moved=moved)
+    return rec
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -333,7 +543,6 @@ def main():
     from urban_tpu_torch import kernel_bench as kb
     from urban_tpu_torch.models.policy import MASK_PAD
     from urban_tpu_torch.ops import segment_ops
-    from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
     from urban_tpu_torch.torchenv import road_fixtures
     from urban_tpu_torch.torchenv import rollout as rollout_mod
     from urban_tpu_torch.torchenv import state as tstate
@@ -372,7 +581,7 @@ def main():
     cfg_t, spec_t, init_t = bench.setup('hlg', {}, 'cpu')  # trainer caps
     N_T, E_T = spec_t.num_features, spec_t.NE
     obs_t = make_batch_fns(spec_t)[0](broadcast_state(init_t, 1))
-    _, spec_g, init_g_cpu = bench.setup('grid', {}, 'cpu')  # trainer caps
+    cfg_g, spec_g, init_g_cpu = bench.setup('grid', {}, 'cpu')  # trainer caps
     _, spec_c, init_c = bench.setup('hlg_concept', {}, 'cpu')
     real_obs = {
         'rollout': ('hlg_initial_observation', obs0),
@@ -414,30 +623,12 @@ def main():
         init_g.replace(done=torch.ones_like(init_g.done)), B),
         torch.Generator(device=dev).manual_seed(2), 2)
     obs_mb = tuple(o[1] for o in traj.obs)   # 256 HLG states, one step in
-    grng = np.random.default_rng(3)
-    returns, adv, noise = (torch.as_tensor(grng.normal(size=(B, 1)),
-                                           dtype=torch.float32)
-                           for _ in range(3))
-    exps = torch.as_tensor(grng.random(B) < 0.7, dtype=torch.float32)
-    valid = torch.as_tensor(grng.random(B) < 0.8, dtype=torch.float32)
-    fixed = traj.log_probs[1][:, None].cpu() + 0.3 * noise
-    grads = {}
-    for where, model, d in (('card', m_gpu, dev), ('cpu', m_cpu, 'cpu')):
-        loss, _ = ppo_loss(model, tuple(o.to(d) for o in obs_mb),
-                           traj.actions[1].to(d), returns.to(d), adv.to(d),
-                           fixed.to(d), exps.to(d), PPOConfig(), valid.to(d))
-        loss.backward()
-        grads[where] = {k: p.grad.cpu() for k, p in model.named_parameters()}
-    err = {k: float((grads['card'][k] - g).abs().max())
-           for k, g in grads['cpu'].items()}
-    bound = {k: TOL_GRAD_REL * float(g.abs().max()) + TOL_GRAD_ABS
-             for k, g in grads['cpu'].items()}
-    edge_fc = {k: float(g.abs().sum()) for k, g in grads['card'].items()
+    err, bound, card_grads = ppo_grads_card_vs_cpu(
+        m_gpu, m_cpu, obs_mb, traj.actions[1], traj.log_probs[1], dev)
+    edge_fc = {k: float(g.abs().sum()) for k, g in card_grads.items()
                if '.edge_fc.' in k}
-    bad = {k: (e, bound[k]) for k, e in err.items() if not e <= bound[k]}
-    if bad or not all(s > 0 for s in edge_fc.values()):
-        raise AssertionError(f'PPO gradients card vs cpu: {bad}, edge_fc '
-                             f'gradient sums {edge_fc}')
+    if not all(s > 0 for s in edge_fc.values()):
+        raise AssertionError(f'edge_fc gradient sums {edge_fc}')
     h_req = torch.zeros(2, E_T, 16, device=dev, requires_grad=True)
     agg = segment_ops.segment_mean(h_req, obs_mb[2][:2].to(dev),
                                    obs_mb[5][:2].to(dev), N_T)
@@ -449,6 +640,50 @@ def main():
           tolerance=[TOL_GRAD_REL, TOL_GRAD_ABS],
           edge_fc_grad_abs_sums=edge_fc,
           segment_mean_grad_fn=type(agg.grad_fn).__name__)
+
+    # ---- 4c. the MLP encoder on the card vs the CPU ---------------------
+    # the ablation without message passing, at the grid's widths: logits
+    # and value on 256 grid states one step in, then one PPO loss gradient;
+    # it launches neither kernel
+    t0 = time.time()
+    segment_ops.reset_launches()
+    mlp_gpu = bench.make_model(cfg_g, spec_g, seed=0, device=dev,
+                               encoder='mlp')
+    mlp_cpu = bench.make_model(cfg_g, spec_g, seed=0, device='cpu',
+                               encoder='mlp')
+    init_gg = init_g_cpu.map(lambda x: x.to(dev))
+    _, traj = rollout(spec_g, mlp_gpu, init_gg, broadcast_state(
+        init_gg.replace(done=torch.ones_like(init_gg.done)), B),
+        torch.Generator(device=dev).manual_seed(4), 2)
+    obs_mlp = tuple(o[1] for o in traj.obs)   # 256 grid states, one step in
+    with torch.no_grad():
+        lu_c, rd_c, _, v_c = mlp_cpu(tuple(o.cpu() for o in obs_mlp))
+        lu_g, rd_g, _, v_g = mlp_gpu(obs_mlp)
+    lu_g, rd_g, v_g = lu_g.cpu(), rd_g.cpu(), v_g.cpu()
+    lu_m, rd_m = obs_mlp[6].cpu(), obs_mlp[7].cpu()
+    errs = {'land_use_logits': float((lu_g - lu_c)[lu_m].abs().max()),
+            'value': float((v_g - v_c).abs().max())}
+    if rd_m.any():
+        errs['road_logits'] = float((rd_g - rd_c)[rd_m].abs().max())
+    pad_ok = bool((lu_g[~lu_m] == MASK_PAD).all()
+                  and (rd_g[~rd_m] == MASK_PAD).all())
+    if not (pad_ok and all(e <= TOL_MODEL for e in errs.values())):
+        raise AssertionError(f'MLP model card vs cpu: {errs}, '
+                             f'pad_ok={pad_ok}')
+    err, bound, _ = ppo_grads_card_vs_cpu(mlp_gpu, mlp_cpu, obs_mlp,
+                                          traj.actions[1], traj.log_probs[1],
+                                          dev)
+    mlp_launches = dict(segment_ops.launches)
+    if mlp_launches != {'segment_mean': 0, 'segment_mean_backward': 0}:
+        raise AssertionError(f'the MLP encoder launched {mlp_launches}')
+    phase('mlp_model_card_vs_cpu', t0, encoder='mlp', rows=B,
+          graph=[spec_g.NE, spec_g.num_features], max_abs_err=errs,
+          tolerance=TOL_MODEL, masked_equal_pad=pad_ok,
+          grad_parameters=len(err), grad_max_abs_err=max(err.values()),
+          grad_max_err_over_bound=max(err[k] / bound[k] for k in err),
+          grad_tolerance=[TOL_GRAD_REL, TOL_GRAD_ABS],
+          kernel_launches=mlp_launches)
+    del mlp_gpu, mlp_cpu, traj, obs_mlp, init_gg
 
     # ---- 5. the slice: batched HLG rollout ------------------------------
     t0 = time.time()
@@ -624,6 +859,59 @@ def main():
     phase('road_reward_card_vs_cpu', t0, collect_reward_max_abs_err=err,
           **road_end)
 
+    # ---- 12. the grid's two-phase run_training -------------------------
+    # the grid trainer's model and env batch go first, so that the peaks
+    # below are the two-phase run's own
+    del trainer
+    t0 = time.time()
+    held = torch.cuda.memory_allocated(dev)
+    two = two_phase_grid(dev, layers)
+    se = cfg_g.state_encoder_specs
+    two_launches = {k: sum(c['launches'][k] for c in two['counted'])
+                    for k in segment_ops.launches}
+    gb = 1 / 2 ** 30
+    phase('two_phase_grid', t0, seed=TWO_PHASE_SEED, envs=TWO_PHASE_ENVS,
+          eval_envs=TWO_PHASE_EVAL_ENVS, rollout_len=TWO_PHASE_LEN,
+          iterations_per_phase=1,
+          widths={'gcn_node_dim': se['gcn_node_dim'], 'gcn_layers': layers,
+                  'hidden': se['state_encoder_hidden_size']},
+          phase1=two['phase1_spec'], stats=two['stats'],
+          parts=two['counted'], kernel_launches=two_launches,
+          warm_start_copied_total=list(two['warm_start']),
+          frozen_boundaries=two['frozen_boundaries'],
+          road_budget=two['total_road_steps'],
+          road_mask_candidates=two['road_mask'],
+          phase2_road_rewards=[float(two['road_rewards'].min()),
+                               float(two['road_rewards'].max())],
+          phase2_road_successes=int(two['road_rewards'].numel()),
+          eval_rewards=[two['eval_1'][0], two['eval_2'][0]],
+          unchanged_parameters=sorted(k for k, m in two['moved'].items()
+                                      if not m),
+          peak_gb={'held_before': held * gb,
+                   'phase1': two['phase1_peak_bytes'] * gb,
+                   'phase2': two['phase2_peak_bytes'] * gb},
+          run_seconds=two['run_seconds'],
+          resume_seconds=two['resume_seconds'], resume_same=True)
+
+    # ---- 13. both kernels at the frozen plan's graph ------------------
+    # timed here on a random graph unless kb.SHAPES lists the graph (then
+    # phase 3 timed it), and checked on the frozen plan's own graph
+    t0 = time.time()
+    spec2 = two['spec2']
+    p2 = ('grid_phase2', spec2.NE, spec2.num_features, se['gcn_node_dim'])
+    listed = p2 in kb.SHAPES
+    obs_p2 = make_batch_fns(spec2)[0](broadcast_state(two['init2'], 1))
+    f2, b2, e_f, e_b = check_kernels(
+        kb, segment_ops, dev,
+        {'grid_phase2': ('grid_phase2_initial_observation', obs_p2)}, t0,
+        shapes=[p2], random_graphs=not listed)
+    fwd.update(f2)
+    bwd.update(b2)
+    fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
+    phase('phase2_graph_kernels', t0, shape=list(p2),
+          in_kernel_bench_shapes=listed,
+          backward_plan=segment_ops.backward_plan(p2[2], p2[3])._asdict())
+
     phase('total', t_start)
     shape = 'grid_trainer'
     kernels = [
@@ -632,13 +920,14 @@ def main():
          'urban_tpu/ops/pallas/segment_ops.py:130 '
          '(segment_mean_onehot_pallas)',
          launches['segment_mean'] + train_launches['segment_mean']
-         + eval_launches['segment_mean'] + grid_launches['segment_mean'],
-         fwd_err, fwd[shape]),
+         + eval_launches['segment_mean'] + grid_launches['segment_mean']
+         + two_launches['segment_mean'], fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
          train_launches['segment_mean_backward']
-         + grid_launches['segment_mean_backward'], bwd_err, bwd[shape]),
+         + grid_launches['segment_mean_backward']
+         + two_launches['segment_mean_backward'], bwd_err, bwd[shape]),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',

@@ -217,3 +217,119 @@ def test_compensated_cross_near_parallel():
     assert np.max(np.abs(plain - exact) / np.maximum(ulp, 1e-30)) > 100
     jcomp = np.asarray(jax.jit(jgeo.cross2_compensated)(ux, uy, vx, vy))
     np.testing.assert_array_equal(comp, jcomp)
+
+
+# ---- the MLP encoder (the ablation without message passing) -----------
+
+def _mlp_obs(B=6, seed=7):
+    """_small_obs with one-hot land-use columns, a third of them FEASIBLE,
+    and all-zero rows for dead nodes (an argmax tie, which picks index 0):
+    the edge features then come from either endpoint."""
+    from urban_tpu_torch.host import city_config
+    obs = list(_small_obs(B, seed))
+    rng = np.random.default_rng(seed + 1)
+    k = city_config.NUM_TYPES + 1
+    N = SMALL['max_num_nodes']
+    types = np.where(rng.random((B, N)) < 0.33, city_config.FEASIBLE,
+                     rng.integers(0, k, (B, N)))
+    onehot = np.eye(k, dtype=np.float32)[types]
+    onehot[rng.random((B, N)) < 0.1] = 0.0
+    obs[1] = obs[1].copy()
+    obs[1][..., :k] = onehot
+    return tuple(obs)
+
+
+def _mlp_models(obs, seed=0):
+    jm = JaxActorCritic(encoder='mlp', **SMALL)
+    params = jm.init(jax.random.PRNGKey(seed),
+                     tuple(jnp.asarray(x) for x in obs))
+    tm = ActorCritic(**SMALL, encoder='mlp')
+    load_flax_params(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
+def test_mlp_encoder_forward_matches_flax():
+    """Logits, value and the encoder's outputs against the Flax MLP
+    encoder (f32 both sides, no aggregation: atol = rtol = 1e-5)."""
+    obs = _mlp_obs()
+    jm, params, tm = _mlp_models(obs)
+    jobs = tuple(jnp.asarray(x) for x in obs)
+    j_enc = jm.apply(params, jobs, method=lambda m, o: m.shared_net(o))
+    j_out = jm.apply(params, jobs)
+    with torch.no_grad():
+        t_enc = tm.shared_net(_t(obs))
+        t_out = tm(_t(obs))
+    for k in range(3):
+        np.testing.assert_allclose(t_enc[k].numpy(), np.asarray(j_enc[k]),
+                                   rtol=1e-5, atol=1e-5)
+    for k in (0, 1, 3):
+        np.testing.assert_allclose(t_out[k].numpy(), np.asarray(j_out[k]),
+                                   rtol=1e-5, atol=1e-5)
+    assert tm.num_gcn_layers == 0 and not hasattr(tm.shared_net, 'edge_fc')
+
+
+def test_mlp_encoder_ppo_gradients_match_flax():
+    """One PPO loss and its parameter gradients against jax.value_and_grad
+    of the JAX loss on the same parameters (the tolerances of
+    tests/test_torch_ppo.py: values 1e-5, gradients atol 1e-5 + rtol
+    1e-4)."""
+    from urban_tpu.rl import ppo as jppo
+    from urban_tpu_torch.models.convert import to_flax_params
+    from urban_tpu_torch.rl import ppo as tppo
+    obs = _mlp_obs(B=8, seed=9)
+    jm, params, tm = _mlp_models(obs, seed=2)
+    rng = np.random.default_rng(10)
+    actions = np.stack([
+        np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                  for m in obs[6]]),
+        np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                  for m in obs[7]])], -1).astype(np.int32)
+    returns, adv, noise = (rng.normal(size=(8, 1)).astype(np.float32)
+                           for _ in range(3))
+    exps = (rng.random(8) < 0.7).astype(np.float32)
+    valid = (rng.random(8) < 0.8).astype(np.float32)
+    jobs = tuple(jnp.asarray(x) for x in obs)
+    lp, _, _ = jm.apply(params, jobs, jnp.asarray(actions),
+                        method='log_prob_entropy_value')
+    fixed = np.asarray(lp) + 0.3 * noise
+    (j_loss, j_stats), j_grads = jax.jit(jax.value_and_grad(
+        lambda p: jppo.ppo_loss(jm, p, jobs, *(jnp.asarray(x) for x in (
+            actions, returns, adv, fixed, exps)), jppo.PPOConfig(),
+            jnp.asarray(valid)), has_aux=True))(params)
+    t_loss, t_stats = tppo.ppo_loss(
+        tm, _t(obs), *_t((actions, returns, adv, fixed, exps)),
+        tppo.PPOConfig(), torch.as_tensor(valid))
+    t_loss.backward()
+    for k in tppo.STAT_KEYS:
+        np.testing.assert_allclose(float(t_stats[k]), float(j_stats[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    g = ActorCritic(**SMALL, encoder='mlp')
+    with torch.no_grad():
+        for p, q in zip(g.parameters(), tm.parameters()):
+            p.copy_(q.grad)
+    a = jax.tree_util.tree_flatten_with_path(to_flax_params(g))[0]
+    b = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(np.asarray, j_grads))[0])
+    assert {k for k, _ in a} == set(b)
+    for k, v in a:
+        np.testing.assert_allclose(v, b[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(k))
+    assert max(float(np.abs(v).max()) for _, v in a) > 1e-3
+
+
+def test_load_flax_params_rejects_a_wrong_mlp_tree():
+    obs = _mlp_obs()
+    _, params, _ = _mlp_models(obs)
+    tree = jax.tree.map(np.asarray, params)['params']
+    shared = dict(tree['shared_net'])
+    del shared['node_encoder']
+    with pytest.raises(KeyError):
+        load_flax_params(ActorCritic(**SMALL, encoder='mlp'),
+                         {'params': {**tree, 'shared_net': shared}})
+    # the SGNN's tree has edge_fc_* and attention, which the MLP lacks
+    _, sgnn_params, _ = _models(SMALL, obs)
+    with pytest.raises(KeyError):
+        load_flax_params(ActorCritic(**SMALL, encoder='mlp'),
+                         jax.tree.map(np.asarray, sgnn_params))
+    with pytest.raises(KeyError):
+        load_flax_params(ActorCritic(**SMALL), {'params': tree})

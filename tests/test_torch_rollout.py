@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -102,3 +103,52 @@ def test_bench_helpers_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
+
+
+def _land_use_nearly_done(fields, spec, t):
+    """The initial plan with every other block given a seeded land use
+    (so that the stage reward has something to score) and every land-use
+    requirement met but one parcel of type t: the next placement of a t
+    parcel ends the stage."""
+    d = {k: np.array(v) for k, v in fields.items()}
+    blocks = np.nonzero(d['poly_alive'])[0][::2]
+    d['poly_type'][blocks] = np.random.default_rng(0).choice(
+        spec.plan_order, len(blocks))
+    ratio = np.asarray(spec.required_plan_ratio, np.float32)
+    d['plan_area'] = (ratio * spec.community_area).astype(np.float32)
+    d['plan_count'] = np.asarray(spec.required_plan_count, np.int32).copy()
+    d['plan_count'][t] -= 1
+    return d
+
+
+def test_make_batch_fns_with_rewards_matches_jax():
+    """make_batch_fns(spec, defer_rewards=False) against JAX's on the grid
+    at small caps (tests/test_torch_road_lockstep.py): two envs one
+    placement from the end of their land use and one near the end of its
+    road stage (torchenv/road_fixtures.road_stage_state), stepped in
+    lockstep until all are done. States equal (ints and bools exactly,
+    floats rtol 1e-5 / atol 1e-4), rewards and the info's cached land-use
+    reward within the same tolerance (tests/torch_parity.py)."""
+    from torch_parity import build_pair, jax_fields, jax_state, lockstep
+    from urban_tpu_torch.torchenv import road_fixtures as rf
+    from urban_tpu_torch.torchenv import state as tstate
+    spec_j, s0_j, spec_t, _ = build_pair(
+        'grid', dict(NP=128, NS=256, NPT=160, NE=1024))
+    init = jax_fields(s0_j)
+    counted = [t for t in spec_t.plan_order
+               if spec_t.required_plan_count[t] > 0]
+    lu = _land_use_nearly_done(init, spec_t, counted[-1])
+    rd = rf.road_stage_state(init, spec_t.road_ratio, seed=2, frac=0.15)
+    batch = {k: np.stack([lu[k], lu[k], rd[k]]) for k in init}
+    rngs = [np.random.default_rng(b) for b in (0, 1, 2)]
+    steps = lockstep(spec_j, jax_state(batch), spec_t,
+                     tstate.plan_state_from_numpy(batch, 'cpu'), rngs,
+                     int(batch['total_road_steps'].max()) + 8,
+                     freeze_done=True, where='rewarded step',
+                     defer_rewards=False)
+    reward, done, failure, lu_done, rd_done = (np.stack(x)
+                                               for x in zip(*steps))
+    assert lu_done[0, :2].all() and not failure[0, :2].any()
+    assert (reward[0, :2] > 0).all()      # the land-use reward, on the step
+    assert rd_done[:, 2].any() and not failure[:, 2].any()
+    assert 0 < reward[rd_done[:, 2].argmax(), 2] <= 1

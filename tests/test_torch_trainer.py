@@ -84,8 +84,7 @@ def test_trainer_update_matches_tpu_trainer(tmp_path, monkeypatch):
     assert max(np.abs(b[k] - init[k]).max() for k in b) > 1e-3
 
 
-@pytest.mark.parametrize('option,value', [('separate_train', True),
-                                          ('num_devices', 4)])
+@pytest.mark.parametrize('option,value', [('num_devices', 4)])
 def test_run_training_refuses_what_is_not_ported(option, value, tmp_path):
     from urban_tpu_torch.rl.trainer import run_training
     cfg = TorchConfig('hlg', 0, root_dir=str(tmp_path))

@@ -63,7 +63,7 @@ def assert_state_close(j_fields, t_state, where=''):
 
 
 def lockstep(spec_j, sj, spec_t, st, rngs, steps, freeze_done=False,
-             where=''):
+             where='', defer_rewards=True, with_states=False):
     """Step the batched states sj (JAX) and st (port) in lockstep for up to
     `steps` steps with the same actions: env b draws, with rngs[b], a
     land-use action from the JAX land-use mask in stage 0 and a road
@@ -71,18 +71,23 @@ def lockstep(spec_j, sj, spec_t, st, rngs, steps, freeze_done=False,
     edges and masks, every state field, the failure code, done and the
     reward agree (RTOL / ATOL for floats). With freeze_done, finished envs
     keep their terminal state and the loop ends when all have finished.
-    Returns the per-step (reward, done, failure, lu_done, rd_done), numpy
-    arrays from the JAX side."""
-    j_obs_fn, j_step_fn = j_make(spec_j)
+    With defer_rewards False, both packages step through
+    make_batch_fns(spec, defer_rewards=False), whose steps return the stage
+    rewards themselves, and the info's cached land-use reward must agree
+    too. Returns the per-step (reward, done, failure, lu_done, rd_done),
+    numpy arrays from the JAX side; with with_states, also the last
+    batched states of each package (JAX, port)."""
+    j_obs_fn, j_step_fn = j_make(spec_j, defer_rewards=defer_rewards)
 
     @jax.jit
     def j_step(s, a):
         n, r, d, info = j_step_fn(s, a)
-        n, r = j_apply(spec_j, n, r, info)
+        if defer_rewards:
+            n, r = j_apply(spec_j, n, r, info)
         return n, r, d, info
 
     j_obs = jax.jit(j_obs_fn)
-    t_obs, t_step = make_batch_fns(spec_t)
+    t_obs, t_step = make_batch_fns(spec_t, defer_rewards=defer_rewards)
     B = len(rngs)
     finished = np.zeros(B, bool)
     out = []
@@ -103,7 +108,13 @@ def lockstep(spec_j, sj, spec_t, st, rngs, steps, freeze_done=False,
                 acts[b, 1] = rngs[b].choice(np.nonzero(rd[b])[0])
         nj, rj, dj, ij = j_step(sj, jnp.asarray(acts))
         nt, rt, dt, it = t_step(st, torch.as_tensor(acts))
-        nt, rt = apply_stage_rewards(spec_t, nt, rt, it)
+        if defer_rewards:
+            nt, rt = apply_stage_rewards(spec_t, nt, rt, it)
+        else:
+            np.testing.assert_allclose(
+                it['land_use_reward'].numpy(),
+                np.asarray(ij['land_use_reward']), rtol=RTOL, atol=ATOL,
+                err_msg=f'{where} step {i} info land_use_reward')
         assert_state_close(jax_fields(nj), nt, f'{where} step {i}')
         np.testing.assert_array_equal(it['failure_code'].numpy(),
                                       np.asarray(ij['failure_code']),
@@ -121,8 +132,6 @@ def lockstep(spec_j, sj, spec_t, st, rngs, steps, freeze_done=False,
             continue
         frozen = finished.copy()
         finished |= np.asarray(dj)
-        if finished.all():
-            break
         fj, ft = jnp.asarray(frozen), torch.as_tensor(frozen)
         sj = jax.tree.map(lambda old, new: jnp.where(
             fj.reshape((-1,) + (1,) * (new.ndim - 1)), old, new), sj, nj)
@@ -130,7 +139,9 @@ def lockstep(spec_j, sj, spec_t, st, rngs, steps, freeze_done=False,
             torch.where(ft.reshape((-1,) + (1,) * (getattr(nt, n).dim() - 1)),
                         getattr(st, n), getattr(nt, n))
             for n in tstate.FIELD_NAMES))
-    return out
+        if finished.all():
+            break
+    return (out, sj, st) if with_states else out
 
 
 def check_scenario(name, caps, steps=8, B=2):

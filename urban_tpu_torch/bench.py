@@ -77,13 +77,14 @@ def setup(name: str = 'hlg', caps=None, device='cuda'):
     return cfg, spec, state.map(lambda x: x.to(device))
 
 
-def make_model(cfg, spec, seed: int = 0, device='cuda'):
-    """The SGNN actor-critic at the config's widths, random weights from
-    `seed`, graph caps from the env spec, on `device` (the card unless the
-    caller asks for the CPU)."""
+def make_model(cfg, spec, seed: int = 0, device='cuda',
+               encoder: str = 'sgnn'):
+    """The actor-critic (the SGNN unless encoder is 'mlp') at the config's
+    widths, random weights from `seed`, graph caps from the env spec, on
+    `device` (the card unless the caller asks for the CPU)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = create_model(cfg, spec.num_features, spec.NE)
+        model = create_model(cfg, spec.num_features, spec.NE, encoder)
     return model.to(device).eval()
 
 

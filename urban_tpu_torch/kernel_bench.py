@@ -27,11 +27,12 @@ import torch.nn.functional as F
 B = 256
 # (name, edges, nodes, width): the rollout bench's and the trainer's HLG
 # graphs, a large graph at the widest supported width, the grid trainer's
-# graph (its road stage, 2688 feature slots) and the concept scenarios'
-# trainer graph (4000 edge slots)
+# graph (its road stage, 2688 feature slots), the concept scenarios'
+# trainer graph (4000 edge slots) and the graph of the grid's two-phase
+# road phase (the frozen plan of chip_smoke.py's seed-0 run: 1600 slots)
 SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('large_graph', 8192, 4096, 64), ('grid_trainer', 3000, 2688, 16),
-          ('concept', 4000, 1344, 16))
+          ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order
 

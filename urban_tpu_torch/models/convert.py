@@ -29,18 +29,20 @@ def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
 
 
 def _linear_map(model: ActorCritic) -> Dict[str, torch.nn.Linear]:
-    """Flax module path -> the torch Linear it becomes."""
+    """Flax module path -> the torch Linear it becomes. The MLP encoder
+    has only the numerical MLP and the node encoder."""
     sn = model.shared_net
     m = {}
     for i, layer in enumerate(sn.mlp.layers):
         m[f'shared_net/MLP_0/Dense_{i}'] = layer
     m['shared_net/node_encoder'] = sn.node_encoder
-    for j, fc in enumerate(sn.edge_fc):
-        for i, layer in enumerate(fc.layers):
-            m[f'shared_net/edge_fc_{j}/Dense_{i}'] = layer
-    att = sn.attention
-    for i, layer in enumerate((att.q, att.k, att.v, att.out)):
-        m[f'shared_net/attention/Dense_{i}'] = layer
+    if model.encoder == 'sgnn':
+        for j, fc in enumerate(sn.edge_fc):
+            for i, layer in enumerate(fc.layers):
+                m[f'shared_net/edge_fc_{j}/Dense_{i}'] = layer
+        att = sn.attention
+        for i, layer in enumerate((att.q, att.k, att.v, att.out)):
+            m[f'shared_net/attention/Dense_{i}'] = layer
     for head in ('land_use_head', 'road_head'):
         for i, layer in enumerate(getattr(model, head).layers):
             m[f'{head}/Dense_{i}'] = layer

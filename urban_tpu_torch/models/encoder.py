@@ -1,11 +1,15 @@
-"""SGNN state encoder (counterpart of urban_tpu/models/encoder.py).
+"""State encoders (counterpart of urban_tpu/models/encoder.py).
 
-Message-passing GCN over the padded plan graph: node embeddings are
-gathered to edges through a symmetrized edge MLP and mean-aggregated back to
-nodes with a residual connection, then a single-query attention of the
-current land use over all nodes. The edge-to-node aggregation always goes
-through ``urban_tpu_torch.ops.segment_ops.segment_mean`` (the Hopper kernel
-on a CUDA tensor); the gather is plain f32 indexing.
+SGNNStateEncoder: message-passing GCN over the padded plan graph: node
+embeddings are gathered to edges through a symmetrized edge MLP and
+mean-aggregated back to nodes with a residual connection, then a
+single-query attention of the current land use over all nodes. The
+edge-to-node aggregation always goes through
+``urban_tpu_torch.ops.segment_ops.segment_mean`` (the Hopper kernel on a
+CUDA tensor); the gather is plain f32 indexing.
+
+MLPStateEncoder: the ablation without message passing; each edge takes the
+features of its feasible-side endpoint, and no segment mean runs.
 
 Observation tuple layout (batched, B leading):
   numerical (B,F), nodes (B,N,Dn), edges (B,E,2) int32, current_node (B,Dn),
@@ -20,6 +24,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from urban_tpu_torch.host import city_config
 from urban_tpu_torch.ops.segment_ops import segment_mean
 
 EPSILON = 1e-6
@@ -44,12 +49,26 @@ class MLP(nn.Module):
         return x
 
 
+def endpoint_rows(x, edges):
+    """(B, E, D) rows of x (B, N, D) at each edge's first and second
+    endpoint."""
+    n, d = x.shape[-2], x.shape[-1]
+    ed = edges.long().clamp(0, n - 1)
+    return (torch.gather(x, 1, ed[..., 0:1].expand(-1, -1, d)),
+            torch.gather(x, 1, ed[..., 1:2].expand(-1, -1, d)))
+
+
+def first_argmax(x):
+    """Index of the first maximum along the last axis (jnp.argmax's rule
+    on a tie), whatever the device's argmax does."""
+    idx = torch.arange(x.shape[-1], device=x.device)
+    top = x.amax(dim=-1, keepdim=True)
+    return torch.where(x == top, idx, x.shape[-1]).amin(dim=-1)
+
+
 def gather_to_edges(h_nodes, edges, edge_mask, edge_fc):
     """Per-edge embeddings from both endpoints through a symmetrized MLP."""
-    n, d = h_nodes.shape[-2], h_nodes.shape[-1]
-    ed = edges.long().clamp(0, n - 1)
-    h1 = torch.gather(h_nodes, 1, ed[..., 0:1].expand(-1, -1, d))
-    h2 = torch.gather(h_nodes, 1, ed[..., 1:2].expand(-1, -1, d))
+    h1, h2 = endpoint_rows(h_nodes, edges)
     h12 = torch.cat([h1, h2], dim=-1)
     h21 = torch.cat([h2, h1], dim=-1)
     h_edges = 0.5 * (edge_fc(h12) + edge_fc(h21))
@@ -132,6 +151,50 @@ class SGNNStateEncoder(nn.Module):
 
         state_value = torch.cat(
             [h_numerical, h_nodes_mean, h_edges_mean, h_att, stage], dim=-1)
+        h_cur_rep = h_current.expand(-1, self.max_num_edges, -1)
+        state_policy_land_use = torch.cat(
+            [h_edges, h_cur_rep, h_edges * h_cur_rep, h_edges - h_cur_rep],
+            dim=-1)
+        return (state_policy_land_use, h_nodes, state_value,
+                land_use_mask, road_mask, stage)
+
+
+class MLPStateEncoder(nn.Module):
+    """No message passing: the edge features are the raw features of the
+    edge's feasible-side endpoint, encoded by the same Linear as the
+    nodes."""
+
+    def __init__(self, numerical_dim: int, node_dim: int,
+                 hidden_size: Sequence[int], gcn_node_dim: int,
+                 max_num_nodes: int, max_num_edges: int):
+        super().__init__()
+        self.gcn_node_dim = gcn_node_dim
+        self.max_num_nodes = max_num_nodes
+        self.max_num_edges = max_num_edges
+        self.mlp = MLP(numerical_dim, hidden_size)
+        self.node_encoder = nn.Linear(node_dim, gcn_node_dim)
+        self.output_policy_land_use_size = gcn_node_dim * 4
+        self.output_policy_road_size = gcn_node_dim
+        self.output_value_size = gcn_node_dim * 2 + hidden_size[-1] + 3
+
+    def forward(self, obs) -> Tuple:
+        (numerical, nodes, edges, current_node, node_mask, edge_mask,
+         land_use_mask, road_mask, stage) = obs
+        h_numerical = self.mlp(numerical)
+        f1, f2 = endpoint_rows(nodes, edges)
+        f2_feasible = first_argmax(
+            f2[..., :city_config.NUM_TYPES + 1]) == city_config.FEASIBLE
+        edge_features = torch.where(f2_feasible[..., None], f2, f1)
+        edge_features = torch.where(edge_mask[..., None], edge_features, 0.0)
+
+        h_nodes = self.node_encoder(nodes)
+        h_edges = self.node_encoder(edge_features)
+        h_current = self.node_encoder(current_node)[:, None, :]  # (B,1,D)
+
+        h_edges_mean = mean_features(h_edges, edge_mask)
+        h_nodes_mean = mean_features(h_nodes, node_mask)
+        state_value = torch.cat(
+            [h_numerical, h_nodes_mean, h_edges_mean, stage], dim=-1)
         h_cur_rep = h_current.expand(-1, self.max_num_edges, -1)
         state_policy_land_use = torch.cat(
             [h_edges, h_cur_rep, h_edges * h_cur_rep, h_edges - h_cur_rep],

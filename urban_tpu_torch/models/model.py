@@ -1,7 +1,8 @@
 """Shared-trunk actor-critic (counterpart of urban_tpu/models/model.py).
 
-The SGNN encoder, both policy heads and the value head live in one module;
-``sample_action_logp_value`` runs the trunk once per rollout step.
+The state encoder (the SGNN, or the MLP ablation), both policy heads and
+the value head live in one module; ``sample_action_logp_value`` runs the
+trunk once per rollout step.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from torch import nn
 
 from urban_tpu_torch.host import city_config
-from urban_tpu_torch.models.encoder import SGNNStateEncoder
+from urban_tpu_torch.models.encoder import MLPStateEncoder, SGNNStateEncoder
 from urban_tpu_torch.models.policy import (PolicyHead, categorical_entropy,
                                            categorical_log_prob,
                                            categorical_sample, masked_logits)
@@ -27,13 +28,23 @@ class ActorCritic(nn.Module):
                  num_attention_heads: int, max_num_nodes: int,
                  max_num_edges: int, land_use_hidden: Sequence[int],
                  road_hidden: Sequence[int], value_hidden: Sequence[int],
-                 numerical_dim: int = NUMERICAL_DIM, node_dim: int = NODE_DIM):
+                 numerical_dim: int = NUMERICAL_DIM, node_dim: int = NODE_DIM,
+                 encoder: str = 'sgnn'):
         super().__init__()
-        self.num_gcn_layers = num_gcn_layers
-        self.shared_net = SGNNStateEncoder(
-            numerical_dim, node_dim, hidden_size, gcn_node_dim,
-            num_gcn_layers, num_edge_fc_layers, num_attention_heads,
-            max_num_nodes, max_num_edges)
+        self.encoder = encoder
+        if encoder == 'sgnn':
+            self.shared_net = SGNNStateEncoder(
+                numerical_dim, node_dim, hidden_size, gcn_node_dim,
+                num_gcn_layers, num_edge_fc_layers, num_attention_heads,
+                max_num_nodes, max_num_edges)
+        elif encoder == 'mlp':
+            self.shared_net = MLPStateEncoder(
+                numerical_dim, node_dim, hidden_size, gcn_node_dim,
+                max_num_nodes, max_num_edges)
+        else:
+            raise ValueError(f'unknown encoder {encoder!r}')
+        # segment means a forward runs: one per GCN layer, none for the MLP
+        self.num_gcn_layers = num_gcn_layers if encoder == 'sgnn' else 0
         sn = self.shared_net
         self.land_use_head = PolicyHead(sn.output_policy_land_use_size,
                                         land_use_hidden)
@@ -146,12 +157,14 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def create_model(cfg, max_num_nodes: int | None = None,
-                 max_num_edges: int | None = None) -> ActorCritic:
-    """Build the SGNN actor-critic from a config's spec dicts. The graph
-    caps default to the config's and are normally the env spec's
-    (num_features, NE)."""
+                 max_num_edges: int | None = None,
+                 encoder: str = 'sgnn') -> ActorCritic:
+    """Build the actor-critic (encoder 'sgnn' or 'mlp') from a config's
+    spec dicts. The graph caps default to the config's and are normally
+    the env spec's (num_features, NE)."""
     se = cfg.state_encoder_specs
     return ActorCritic(
+        encoder=encoder,
         hidden_size=tuple(se['state_encoder_hidden_size']),
         gcn_node_dim=se['gcn_node_dim'],
         num_gcn_layers=se.get('num_gcn_layers', 2),

@@ -11,14 +11,23 @@ minibatch permutation comes from ``np.random.default_rng(seed +
 iteration)``, as in the JAX trainer, so both take the same minibatches;
 the rollout and sampling noise comes from an explicit ``torch.Generator``.
 
+``run_training`` runs one phase, or with ``separate_train`` the two-phase
+land-use -> road curriculum: ``iterations`` of land use only (the phase-1
+env keeps its BOUNDARY segments), then the best greedy plan is frozen
+(``freeze_land_use_trainer``: leftover feasible space becomes small green,
+the spec, the initial state and the model are rebuilt around the frozen
+plan, and the phase-1 best parameters are carried over where their names
+and shapes fit, ``transfer_matching_params``), then ``iterations`` of
+roads only. The encoder is the SGNN or the MLP ablation (``--encoder``).
+
     python -m urban_tpu_torch.rl.trainer --cfg hlg --iterations 1 \
         --num_envs 2 --device cpu
+    python -m urban_tpu_torch.rl.trainer --cfg grid --separate_train \
+        --encoder sgnn --iterations 1 --num_envs 2 --rollout_len 60 \
+        --device cpu
 
 Not in this port yet (ROADMAP.md, queue 1), and refused with
-NotImplementedError: the two-phase land-use -> road curriculum
-(``--separate_train``, ``freeze_land_use_trainer``,
-``transfer_matching_params``) and the data-parallel mesh
-(``--num_devices`` > 1).
+NotImplementedError: the data-parallel mesh (``--num_devices`` > 1).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from urban_tpu_torch.host import city_config
 from urban_tpu_torch.host.envs.plan_client import PlanClient
 from urban_tpu_torch.host.utils.config import Config
 from urban_tpu_torch.host.utils.logger import create_logger
@@ -45,7 +55,8 @@ from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
                                               normalize_advantages, rollout)
 from urban_tpu_torch.torchenv.state import (build_env_spec,
                                             build_initial_state,
-                                            plan_state_to_numpy)
+                                            plan_state_to_numpy,
+                                            state_to_table)
 from urban_tpu_torch.torchenv.step import (batched_road_network_reward,
                                            greenness_reward,
                                            life_circle_reward)
@@ -88,13 +99,17 @@ class Trainer:
 
     def __init__(self, cfg: Config, num_envs: Optional[int] = None,
                  rollout_len: Optional[int] = None, eval_envs: int = 16,
-                 device='cuda', use_tensorboard: bool = False):
+                 device='cuda', use_tensorboard: bool = False,
+                 keep_boundaries: bool = False, encoder: str = 'sgnn'):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.encoder = encoder
         self.plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
-        # the JAX trainer's spec: default capacities, the config's edge cap
+        # the JAX trainer's spec: default capacities, the config's edge cap;
+        # a phase-1 trainer keeps the BOUNDARY segments at land-use end
         self.spec = build_env_spec(cfg, self.plc,
-                                   max_steps=cfg.max_sequence_length)
+                                   max_steps=cfg.max_sequence_length,
+                                   keep_boundaries=keep_boundaries)
         self.init_state = build_initial_state(self.spec, self.plc,
                                               device=self.device)
         self.num_envs = num_envs or cfg.rollout_specs.get('num_envs', 256)
@@ -124,18 +139,22 @@ class Trainer:
         self.best_params = None           # state_dict at the best eval
         self.best_iteration = -1
         self.start_iteration = 0
-        self.phase = 1
+        self.phase = 1                    # 2 after freeze_land_use_trainer
+        self.frozen_table = None          # the frozen land-use plan
+        self.warm_start = None            # (copied, total) into phase 2
         self.last_value_mc_rms = float('nan')
 
     def _init_model(self):
         """Build the model, initialized as Flax initializes the JAX one
         (from cfg.seed), and its optimizer around the spec's slot sizes:
-        nodes = feature slots, edges = edge slots."""
+        nodes = feature slots, edges = edge slots. Called again by
+        freeze_land_use_trainer, whose frozen plan regrows the slot
+        table."""
         cfg = self.cfg
         cfg.state_encoder_specs = dict(cfg.state_encoder_specs)
         cfg.state_encoder_specs['max_num_nodes'] = self.spec.num_features
         cfg.state_encoder_specs['max_num_edges'] = self.spec.NE
-        model = create_model(cfg)
+        model = create_model(cfg, encoder=self.encoder)
         init_like_flax(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(),
@@ -231,6 +250,13 @@ class Trainer:
                                iteration)
         return mean_r, chans
 
+    def best_plan_table(self):
+        """The best greedy plan as a host GeoTable (for host scoring and
+        the land-use freeze), or None before any successful eval."""
+        if self.best_plan_state is None:
+            return None
+        return state_to_table(self.best_plan_state)
+
     # ------------------------------------------------------------------
     def train_iteration(self, iteration: int,
                         do_eval: bool = True) -> TrainStats:
@@ -285,7 +311,8 @@ class Trainer:
                   'best_plan_state': self.best_plan_state,
                   'best_params': self.best_params,
                   'best_iteration': self.best_iteration,
-                  'phase': self.phase}
+                  'phase': self.phase,
+                  'frozen_table': self.frozen_table}
         params = {k: v.detach().cpu() for k, v
                   in self.model.state_dict().items()}
         torch.save(dict(common, params=params,
@@ -301,15 +328,14 @@ class Trainer:
                    os.path.join(self.cfg.model_dir, 'best.pt'))
 
     def load_checkpoint(self, path, restore_best_reward: bool = True) -> None:
-        """path: a checkpoint file this trainer wrote, or its loaded dict."""
-        if isinstance(path, dict):
-            ckpt = path
-        else:
-            # the file holds numpy arrays (the best plan), so it is read
-            # with full unpickling: only load checkpoints this trainer wrote
-            ckpt = torch.load(path, map_location='cpu', weights_only=False)
-        if ckpt.get('phase', 1) != 1:
-            raise NotImplementedError(f'two-phase training {NOT_PORTED}')
+        """path: a checkpoint file this trainer wrote, or its loaded dict.
+        A phase-2 checkpoint needs a trainer in phase 2: re-enter it with
+        freeze_land_use_trainer on the checkpoint's frozen_table first
+        (run_training does)."""
+        ckpt = path if isinstance(path, dict) else read_checkpoint(path)
+        if ckpt.get('phase', 1) != self.phase:
+            raise ValueError(f'a phase-{ckpt.get("phase", 1)} checkpoint '
+                             f'does not fit a trainer in phase {self.phase}')
         self.model.load_state_dict(ckpt['params'])
         if ckpt.get('opt_state') is not None:
             self.optimizer.load_state_dict(ckpt['opt_state'])
@@ -324,37 +350,136 @@ class Trainer:
             self.best_iteration = -1
 
 
+def read_checkpoint(path) -> dict:
+    """A checkpoint file this trainer wrote. It holds numpy arrays (the
+    best plan) and a host GeoTable (the frozen plan), so it is read with
+    full unpickling: only read checkpoints this trainer wrote."""
+    return torch.load(path, map_location='cpu', weights_only=False)
+
+
 def transfer_matching_params(src, dst):
-    raise NotImplementedError(f'transfer_matching_params {NOT_PORTED}')
+    """Copy every tensor of the state dict ``src`` into ``dst`` whose name
+    exists in both and whose shape and dtype match; returns (new state
+    dict, copied, total) tensor counts. This carries the land-use-trained
+    trunk into the road phase, whose model is rebuilt around the frozen
+    plan's regrown slot table."""
+    out, copied = {}, 0
+    for name, leaf in dst.items():
+        cand = src.get(name)
+        if cand is not None and cand.shape == leaf.shape \
+                and cand.dtype == leaf.dtype:
+            out[name] = cand.detach().to(leaf.device).clone()
+            copied += 1
+        else:
+            out[name] = leaf
+    return out, copied, len(dst)
 
 
-def freeze_land_use_trainer(trainer: Trainer, table, warm_start_params=None):
-    raise NotImplementedError(f'freeze_land_use_trainer {NOT_PORTED}')
+def freeze_land_use_trainer(trainer: Trainer, table,
+                            warm_start_params=None) -> Trainer:
+    """Switch a trainer to road-only training around a frozen land-use
+    plan (a host GeoTable); cfg.finetune() must already have been applied.
+    The phase-1 model, optimizer and env batch are freed first, so that
+    the device's peak is phase 2's own. warm_start_params: a phase-1 state
+    dict (normally the best-eval one) to carry into the rebuilt model
+    where names and shapes fit, under a fresh optimizer."""
+    trainer.plc.freeze_land_use(table)
+    trainer.plc.unplan_all_land_use()
+    trainer.model = trainer.optimizer = None
+    trainer.env_states = trainer.init_state = None
+    if trainer.device.type == 'cuda':
+        torch.cuda.empty_cache()
+    cfg = trainer.cfg
+    trainer.spec = build_env_spec(cfg, trainer.plc,
+                                  max_steps=cfg.max_sequence_length)
+    trainer.init_state = build_initial_state(trainer.spec, trainer.plc,
+                                             device=trainer.device)
+    trainer._init_model()
+    trainer.warm_start = None
+    if warm_start_params is not None:
+        params, copied, total = transfer_matching_params(
+            warm_start_params, trainer.model.state_dict())
+        trainer.model.load_state_dict(params)
+        trainer.optimizer = make_optimizer(trainer.model.parameters(),
+                                           trainer.ppo_cfg)
+        trainer.warm_start = (copied, total)
+        trainer.logger.info(f'phase 2 warm start: transferred {copied}/'
+                            f'{total} param tensors from phase-1 best')
+    trainer._reset_env_batch()
+    trainer.best_reward = -1000.0
+    trainer.best_plan_state = None
+    trainer.best_params = None
+    trainer.best_iteration = -1
+    trainer.phase = 2
+    trainer.frozen_table = table
+    return trainer
 
 
 def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
                  separate_train: bool = False, eval_envs: int = 16,
                  use_tensorboard: bool = False, rollout_len: int = None,
                  resume: str = None, num_devices: int = 0,
-                 device='cuda') -> Trainer:
-    """Single-phase training loop: iterations x train_iteration, a
-    checkpoint every save_model_interval iterations and a final one."""
-    if separate_train:
-        raise NotImplementedError(f'two-phase training (--separate_train) '
-                                  f'{NOT_PORTED}')
+                 device='cuda', warm_start_phase2: bool = True,
+                 encoder: str = 'sgnn') -> Trainer:
+    """Training loop: iterations x train_iteration with a checkpoint every
+    save_model_interval iterations and a final one; with separate_train,
+    the land-use phase, the freeze of its best plan, then as many
+    iterations of the road phase (numbered iterations .. 2 x iterations -
+    1). Without a successful phase-1 plan the road phase is skipped, as
+    in the JAX trainer. A phase-2 checkpoint resumes in phase 2."""
     if num_devices not in (0, 1):
         raise NotImplementedError(f'data-parallel training (--num_devices '
                                   f'{num_devices}) {NOT_PORTED}')
+    ckpt = read_checkpoint(resume) if resume else None
+    resume_phase = ckpt.get('phase', 1) if ckpt else 1
+    if resume_phase == 2 and not separate_train:
+        raise ValueError('a phase-2 checkpoint requires separate_train')
+    if separate_train:
+        cfg.train()
     trainer = Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
                       eval_envs=eval_envs, device=device,
-                      use_tensorboard=use_tensorboard)
-    if resume:
-        trainer.load_checkpoint(resume)
-    for it in range(trainer.start_iteration, iterations):
+                      use_tensorboard=use_tensorboard,
+                      keep_boundaries=separate_train, encoder=encoder)
+    if ckpt:
+        # a phase-2 checkpoint holds the frozen plan and phase-2 shaped
+        # parameters: re-enter phase 2 before installing them
+        if resume_phase == 2:
+            cfg.finetune()
+            freeze_land_use_trainer(trainer, ckpt['frozen_table'])
+        trainer.load_checkpoint(ckpt)
+
+    if resume_phase == 1:
+        for it in range(trainer.start_iteration, iterations):
+            trainer.train_iteration(it)
+            if (it + 1) % cfg.save_model_interval == 0:
+                trainer.save_checkpoint(it)
+        trainer.save_checkpoint(iterations - 1, tag='phase1_final'
+                                if separate_train else 'final')
+    if not separate_train:
+        return trainer
+
+    if resume_phase == 1:
+        table = trainer.best_plan_table()
+        if table is None:
+            trainer.logger.info('no successful plan found in phase 1; '
+                                'skipping road phase')
+            return trainer
+        # complete the land-use plan as the env's stage transition does:
+        # leftover feasible space becomes small green
+        table.types[table.alive_mask_of(city_config.FEASIBLE)] = \
+            city_config.GREEN_S
+        cfg.finetune()
+        trainer.logger.info(f'phase 2 (road): frozen best plan '
+                            f'reward={trainer.best_reward:.3f}')
+        freeze_land_use_trainer(
+            trainer, table, warm_start_params=(
+                trainer.best_params if warm_start_phase2 else None))
+    for it in range(max(iterations, trainer.start_iteration),
+                    2 * iterations):
         trainer.train_iteration(it)
         if (it + 1) % cfg.save_model_interval == 0:
             trainer.save_checkpoint(it)
-    trainer.save_checkpoint(iterations - 1, tag='final')
+    trainer.save_checkpoint(2 * iterations - 1, tag='phase2_final')
     return trainer
 
 
@@ -371,8 +496,14 @@ def main(argv=None):
     ap.add_argument('--rollout_len', type=int, default=0,
                     help='Rollout window (0 = episode cap).')
     ap.add_argument('--separate_train', action='store_true',
-                    help='Two-phase land-use -> road curriculum (not '
-                    'ported yet).')
+                    help='Two-phase land-use -> road curriculum.')
+    ap.add_argument('--warm_start_phase2',
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help='Carry the phase-1 best parameters into the road '
+                    'phase where their shapes fit.')
+    ap.add_argument('--encoder', choices=('sgnn', 'mlp'), default='sgnn',
+                    help='State encoder: the SGNN, or the MLP ablation '
+                    'without message passing.')
     ap.add_argument('--tensorboard', action='store_true',
                     help='Write TensorBoard scalars.')
     ap.add_argument('--normalize_advantages', action='store_true',
@@ -401,7 +532,8 @@ def main(argv=None):
         set_precision_flags()
     run_training(cfg, a.iterations, a.num_envs or None, a.separate_train,
                  a.eval_envs, a.tensorboard, a.rollout_len or None,
-                 a.resume or None, a.num_devices, a.device)
+                 a.resume or None, a.num_devices, a.device,
+                 a.warm_start_phase2, a.encoder)
 
 
 if __name__ == '__main__':

@@ -40,13 +40,28 @@ def packed_action_to_slots(spec: EnvSpec, state: PlanState,
         torch.int32)
 
 
-def make_batch_fns(spec: EnvSpec):
-    """Batched observation and step functions (slot-layout actions). The
-    step defers stage-boundary rewards to ``apply_stage_rewards``."""
+def make_batch_fns(spec: EnvSpec, defer_rewards: bool = True):
+    """Batched observation and step functions (slot-layout actions).
+
+    With defer_rewards the step leaves stage-boundary rewards to
+    ``apply_stage_rewards``. Without, the step returns them as the JAX
+    step with compute_rewards does: the vmapped step is followed by a
+    batched pass of the stage rewards (the road-network reward cannot run
+    under vmap), which also caches the land-use reward of an env that
+    failed on the step that ended its land use."""
     batch_obs = vmap(lambda s: build_obs(spec, s))
     batch_step = vmap(lambda s, a: env_step(spec, s, a,
                                             compute_rewards=False))
-    return batch_obs, batch_step
+    if defer_rewards:
+        return batch_obs, batch_step
+
+    def step_with_rewards(states: PlanState, actions: torch.Tensor):
+        nxt, reward, done, info = batch_step(states, actions)
+        nxt, reward = apply_stage_rewards(spec, nxt, reward, info,
+                                          cache_failed=True)
+        return nxt, reward, done, dict(info,
+                                       land_use_reward=nxt.land_use_reward)
+    return batch_obs, step_with_rewards
 
 
 def _on_finished(fn, states: PlanState, finished: torch.Tensor,
@@ -60,21 +75,25 @@ def _on_finished(fn, states: PlanState, finished: torch.Tensor,
     return out
 
 
-def apply_stage_rewards(spec: EnvSpec, states: PlanState, reward, info):
+def apply_stage_rewards(spec: EnvSpec, states: PlanState, reward, info,
+                        cache_failed: bool = False):
     """Stage-boundary rewards for the environments that just finished a
     stage without failing: the land-use reward (also cached in the state)
     and, where the scenario plans roads, the weighted road-network reward.
     Each is computed when at least one env needs it (a host-synced branch,
-    for the JAX code's batch-level lax.cond)."""
+    for the JAX code's batch-level lax.cond). With cache_failed the
+    land-use reward is also cached for the envs that failed on the step
+    that ended their land use (their reward stays FAILURE_REWARD)."""
     fail = info['failure']
     lu_fin = info['lu_done'] & ~fail
-    if bool(lu_fin.any()):
+    lu_rows = info['lu_done'] if cache_failed else lu_fin
+    if bool(lu_rows.any()):
         lu_r = _on_finished(
-            vmap(lambda s: land_use_stage_reward(spec, s)), states, lu_fin,
+            vmap(lambda s: land_use_stage_reward(spec, s)), states, lu_rows,
             reward)
         reward = torch.where(lu_fin, lu_r, reward)
         states = states.replace(land_use_reward=torch.where(
-            lu_fin, lu_r, states.land_use_reward))
+            lu_rows, lu_r, states.land_use_reward))
     if spec.road_network_weight > 0 and not spec.skip_road:
         rd_fin = info['rd_done'] & ~fail
         if bool(rd_fin.any()):

@@ -25,7 +25,8 @@ from torch.utils import _pytree as pytree
 
 from urban_tpu_torch.host import city_config
 from urban_tpu_torch.host.envs.plan_client import PlanClient
-from urban_tpu_torch.host.geometry.base import LINE, POINT, POLY
+from urban_tpu_torch.host.envs.plan_table import GeoTable
+from urban_tpu_torch.host.geometry.base import LINE, POINT, POLY, Geometry
 
 
 @dataclass(frozen=True)
@@ -129,6 +130,43 @@ def plan_state_to_numpy(state: PlanState) -> Dict[str, np.ndarray]:
             name = inv[name]
         out[name] = arr
     return out
+
+
+def state_to_table(state) -> GeoTable:
+    """One env's plan as the host engine's GeoTable: alive polygons, then
+    segments, then intersections, numbered in that order (for scoring a
+    plan on the host, and for the two-phase land-use freeze). ``state`` is
+    a PlanState of one env or its ``plan_state_to_numpy`` dict (the JAX
+    field names, flat coordinates). The slot counts come from the state's
+    own buffers, not from a spec."""
+    if isinstance(state, PlanState):
+        state = plan_state_to_numpy(state)
+    f = {}
+    for name, arr in state.items():
+        arr = np.asarray(arr)
+        if name in _FLAT_FIELDS:
+            arr = arr.reshape(arr.shape[:-1] + (arr.shape[-1] // 2, 2))
+            name = _FLAT_FIELDS[name]
+        f[name] = arr
+
+    ids, types, geoms, rects, eqis, scs = [], [], [], [], [], []
+    for i in np.nonzero(f['poly_alive'])[0]:
+        types.append(int(f['poly_type'][i]))
+        geoms.append(Geometry(POLY, f['poly_ring'][i, :f['poly_nvert'][i]]
+                              .astype(np.float64)))
+        rects.append(float(f['poly_rect'][i]))
+        eqis.append(float(f['poly_eqi'][i]))
+        scs.append(float(f['poly_sc'][i]))
+    for j in np.nonzero(f['seg_alive'])[0]:
+        types.append(int(f['seg_type'][j]))
+        geoms.append(Geometry(LINE, f['seg'][j].astype(np.float64)))
+    for k in np.nonzero(f['pt_alive'])[0]:
+        types.append(int(city_config.INTERSECTION))
+        geoms.append(Geometry(POINT, f['pt'][k][None, :].astype(np.float64)))
+    n_other = len(geoms) - len(rects)
+    nan = [np.nan] * n_other
+    return GeoTable(list(range(len(geoms))), types, [True] * len(geoms),
+                    geoms, rects + nan, eqis + nan, scs + nan)
 
 
 @dataclass(frozen=True)
@@ -317,7 +355,6 @@ def build_initial_state(spec: EnvSpec, plc: PlanClient,
 
     # feature-point incidence (exact host geometry)
     from urban_tpu_torch.host.geometry import ops as gops
-    from urban_tpu_torch.host.geometry.base import Geometry
     incidence = np.zeros((spec.num_features, NPT), dtype=bool)
     pt_geoms = [(k, Geometry(POINT, pt[k][None, :]))
                 for k in range(NPT) if pt_alive[k]]
