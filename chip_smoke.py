@@ -23,11 +23,17 @@ passing, no kernel) runs on the card against the CPU, forward and one PPO
 loss gradient. Then the grid's two-phase run_training (land use, the
 freeze of the best greedy plan, roads) of one iteration a phase, its
 resume from the phase-2 checkpoint, and both kernels at the frozen plan's
-graph. The launch counts show that each path went through its kernels.
+graph. Last, the reference API's host-env path: the port's `train` CLI on
+the exact host environment (grid, two phases of one iteration, the policy
+and the PPO update on the card), its `eval` CLI from the best checkpoint
+on the card and on the CPU (the same greedy actions) and a baseline; both
+kernels are also checked at the host observation's graph, at the
+update's batch and at the policy step's batch of one. The launch counts
+show that each path went through its kernels.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 11 minutes on an H100.
+fails. About 10-15 minutes on an H100, as fast as the host is.
 """
 import dataclasses
 import json
@@ -55,7 +61,11 @@ STATE_RTOL, STATE_ATOL = 1e-5, 1e-4   # float state fields, as the CPU tests
 # devices it is rounding noise far below 1e-6
 TOL_GRAD_REL, TOL_GRAD_ABS = 1e-3, 1e-6
 TOL_ROAD = 1e-6          # road reward, card vs CPU (f32 sums, other order)
-ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 50, 16
+# the HLG train_iteration's window, cut from 50 to 35 steps to pay for
+# the host agent's phase: an HLG land-use episode takes ~29 steps, and at
+# 25 every episode that ended was a failure (60 of 60 on the card), which
+# weights every row zero and leaves the update nothing to learn
+ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 35, 16
 # the grid trainer's own batch and window (urban_tpu/cfg grid.yaml)
 GRID_ENVS, GRID_LEN = 192, 120
 ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
@@ -65,6 +75,10 @@ ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
 # few, and one greedy eval env is enough (every greedy episode from the
 # initial state is the same)
 TWO_PHASE_SEED, TWO_PHASE_ENVS, TWO_PHASE_EVAL_ENVS, TWO_PHASE_LEN = 0, 8, 1, 60
+# the host agent's train -> eval: the README's seed; the reference samples
+# 500 episodes an iteration, cut to 8 (and to one iteration a phase)
+HOST_SEED, HOST_EPISODES = 111, 8
+TIE_GAP = 1e-5   # greedy card vs CPU: a top-2 logit gap this small may tie
 
 
 def phase(name, t0, **kv):
@@ -75,15 +89,17 @@ def phase(name, t0, **kv):
 def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                   random_graphs=True):
     """Phase 3: the forward and the backward kernel against their plain
-    versions at every shape of `shapes` (kb.SHAPES), timed on random
-    graphs (unless random_graphs is False), and on a scenario's real graph
-    where real_obs has one for the shape. Returns the times by shape and
-    the largest errors; the inputs, some of them GB, are freed on return,
-    before the paths whose memory is measured."""
-    B = kb.B
+    versions at every shape of `shapes` (kb.SHAPES), at each of its batches
+    (kb.BATCHES, else kb.B), timed on random graphs (unless random_graphs
+    is False), and on a scenario's real graph where real_obs has one for
+    the shape. Returns the times by shape (by f'{shape}_B{B}' at a batch
+    other than kb.B) and the largest errors; the inputs, some of them GB,
+    are freed on return, before the paths whose memory is measured."""
     rng = np.random.default_rng(0)
     fwd, bwd, fwd_err, bwd_err = {}, {}, 0.0, 0.0
-    for shape, e, n, d in shapes or kb.SHAPES:
+    for shape, e, n, d, B in ((*s, b) for s in shapes or kb.SHAPES
+                              for b in kb.BATCHES.get(s[0], (kb.B,))):
+        key = shape if B == kb.B else f'{shape}_B{B}'
         graphs = {}
         if random_graphs:
             graphs['random_bipartite_30pct_masked'] = kb.random_graph(
@@ -136,7 +152,7 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                     raise AssertionError(f'{shape}: library forward {lib_err}')
                 def kernel():
                     return segment_ops.segment_mean_counts(h, edges, mask, n)
-                times = fwd[shape] = {
+                times = fwd[key] = {
                     'ms': kb.cuda_time_ms(kernel),
                     'device_ms': kb.device_time_ms(kernel),
                     'plain_ms': kb.cuda_time_ms(
@@ -182,7 +198,7 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                 def kernel():
                     return segment_ops.segment_mean_backward(g, counts, edges,
                                                              mask)
-                times = bwd[shape] = {
+                times = bwd[key] = {
                     'ms': kb.cuda_time_ms(kernel),
                     'device_ms': kb.device_time_ms(kernel),
                     'plain_ms': kb.cuda_time_ms(
@@ -533,6 +549,219 @@ def two_phase_grid(dev, layers):
     return rec
 
 
+def host_obs_tensors():
+    """The grid host environment's initial observation (CityEnv at
+    grid.yaml's caps: 3000 edge and 1000 node slots, the padded edges at
+    the sentinel node 999, masked) as the policy's tensors on the CPU."""
+    from urban_tpu_torch.agents.urban_agent import obs_to_torch
+    from urban_tpu_torch.bench import load_config
+    from urban_tpu_torch.host.envs.city import CityEnv
+    from urban_tpu_torch.host.rl.memory import stack_obs
+    return obs_to_torch(stack_obs([CityEnv(load_config('grid')).reset()]),
+                        'cpu')
+
+
+def same_greedy_actions(card, cpu, model_cpu):
+    """Two greedy episodes' (observation, action) steps: the same actions,
+    unless the CPU model's top-2 logit gap at the first differing step is
+    under TIE_GAP (then the episodes part there, as in the CPU tests).
+    Returns (steps compared, the gap at a tie or None)."""
+    from urban_tpu_torch.agents.urban_agent import obs_to_torch
+    for i, ((obs, a), (_, b)) in enumerate(zip(card, cpu)):
+        if not np.array_equal(a, b):
+            with torch.no_grad():
+                lu, rd, stage, _ = model_cpu(obs_to_torch(obs, 'cpu'))
+            logits = lu[0] if float(stage[0, 0]) > 0.5 else rd[0]
+            top = torch.topk(logits, 2).values
+            gap = float(top[0] - top[1])
+            if not gap < TIE_GAP:
+                raise AssertionError(f'greedy step {i}: card {a} cpu {b}, '
+                                     f'top-2 gap {gap}')
+            return i, gap
+    if len(card) != len(cpu):
+        raise AssertionError(f'greedy episodes of {len(card)} and '
+                             f'{len(cpu)} steps')
+    return len(card), None
+
+
+def host_agent_grid(dev, layers):
+    """The reference API's host-env PPO path on the card: the port's
+    `train` CLI (grid, the README's seed, two phases of one iteration,
+    HOST_EPISODES episodes an iteration, minibatch 256, 4 epochs), then its
+    `eval` CLI from best.p on the card and on the CPU, and one baseline.
+    Each sample, update and eval is counted on its own: `layers` forward
+    launches a policy step, and for an update layers x (the frozen
+    log-probs' chunks + minibatch steps) forward and layers x minibatch
+    steps backward. In each phase every parameter moves but the other
+    stage's head (phase 1 leaves the road head exactly as it was); phase
+    2's road rewards lie in (0, 1]; the card's greedy episode is the
+    CPU's. Returns the phase's record."""
+    from urban_tpu_torch import eval as eval_cli
+    from urban_tpu_torch import train as train_cli
+    from urban_tpu_torch.agents import urban_agent as ua
+    from urban_tpu_torch.host.rl.sampler import HostSampler
+    from urban_tpu_torch.ops import segment_ops
+    A = ua.UrbanPlanningAgent
+    orig = {'select_fn': A._select_action_fn, 'update': A.update_params,
+            'freeze': A.freeze_land_use, 'sample': HostSampler.sample,
+            'eval': ua.eval_episode}
+    pol = {'steps': 0, 'seconds': 0.0, 'trace': None}
+    parts, rec = [], {'road_rewards': [], 'eval_rewards': {}}
+
+    def select_fn(self):
+        inner = orig['select_fn'](self)
+
+        def select(obs, seed, mean_action):
+            t = time.perf_counter()
+            a = inner(obs, seed, mean_action)
+            pol['seconds'] += time.perf_counter() - t
+            pol['steps'] += 1
+            if pol['trace'] is not None:
+                pol['trace'].append((obs, np.asarray(a).reshape(2)))
+            return a
+        return select
+
+    def phase_of(cfg):
+        return 1 if cfg.skip_road else 2 if cfg.skip_land_use else 0
+
+    def counted(part, fn, cfg_of):
+        def wrapper(*a, **k):
+            segment_ops.reset_launches()
+            pol.update(steps=0, seconds=0.0)
+            t = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts.append({'phase': phase_of(cfg_of(a)), 'part': part,
+                          'seconds': time.time() - t,
+                          'policy_steps': pol['steps'],
+                          'policy_seconds': pol['seconds'],
+                          'launches': dict(segment_ops.launches)})
+            return out
+        return wrapper
+
+    def update(self, batch, iteration):
+        before = {k: p.detach().clone()
+                  for k, p in self.model.named_parameters()}
+        orig['update'](self, batch, iteration)
+        n = len(batch)
+        mb = min(self.cfg.mini_batch_size, n)
+        rec['param_names'] = [k for k, _ in self.model.named_parameters()]
+        rec.setdefault('updates', []).append({
+            'rows': n, 'chunks': -(-n // mb),
+            'steps': self.cfg.num_optim_epoch * max(n // mb, 1),
+            'unchanged': sorted(k for k, p in self.model.named_parameters()
+                                if torch.equal(p, before[k]))})
+        if phase_of(self.cfg) == 2:
+            rec['road_rewards'].append(batch.rewards[batch.masks == 0])
+
+    def evaluate(env, *a, **k):
+        out = orig['eval'](env, *a, **k)
+        rec['eval_rewards'][phase_of(env.cfg)] = out[0].avg_episode_reward
+        return out
+
+    def freeze(self):
+        rec['phase1_peak_bytes'] = torch.cuda.max_memory_allocated(dev)
+        rec['best_after_phase1'] = os.path.exists(
+            os.path.join(self.cfg.model_dir, 'best.p'))
+        orig['freeze'](self)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def cli(module, *argv):
+        return module.main(['--cfg', 'grid', '--global_seed', str(HOST_SEED),
+                            '--root_dir', run_dir, *argv])
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        A._select_action_fn = select_fn
+        A.update_params = counted('update', update, lambda a: a[0].cfg)
+        A.freeze_land_use = freeze
+        HostSampler.sample = counted('sample', orig['sample'],
+                                     lambda a: a[0].env.cfg)
+        ua.eval_episode = counted('eval', evaluate, lambda a: a[0].cfg)
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.time()
+            agent = cli(train_cli, '--max_num_iterations', '1',
+                        '--num_episodes_per_iteration', str(HOST_EPISODES),
+                        '--device', 'cuda')
+            rec['train_seconds'] = time.time() - t
+            rec['phase2_peak_bytes'] = torch.cuda.max_memory_allocated(dev)
+            rec['best_final'] = os.path.exists(
+                os.path.join(agent.cfg.model_dir, 'best.p'))
+            rec['cfg'] = {'mini_batch_size': agent.cfg.mini_batch_size,
+                          'num_optim_epoch': agent.cfg.num_optim_epoch,
+                          'max_sequence_length':
+                              agent.cfg.max_sequence_length,
+                          'episodes_per_iteration':
+                              agent.cfg.num_episodes_per_iteration}
+            del agent
+            traces = {}
+            for where in ('cuda', 'cpu'):
+                pol['trace'] = traces[where] = []
+                t = time.time()
+                ev, log = cli(eval_cli, '--iteration', 'best', '--device',
+                              where)
+                rec[f'eval_{where}'] = {'seconds': time.time() - t,
+                                        'reward': log.avg_episode_reward,
+                                        'steps': len(traces[where])}
+            pol['trace'] = None
+            rec['greedy_steps_compared'], rec['greedy_tie_gap'] = \
+                same_greedy_actions(traces['cuda'], traces['cpu'], ev.model)
+            del ev
+            t = time.time()
+            _, log = cli(eval_cli, '--agent', 'rule-centralized', '--device',
+                         'cuda')
+            rec['baseline'] = {'agent': 'rule-centralized',
+                               'seconds': time.time() - t,
+                               'reward': log.avg_episode_reward}
+        finally:
+            A._select_action_fn = orig['select_fn']
+            A.update_params, A.freeze_land_use = orig['update'], orig['freeze']
+            HostSampler.sample, ua.eval_episode = orig['sample'], orig['eval']
+
+    # the eval CLI runs count as phase 0, in order: card, CPU, baseline
+    got = [(p['phase'], p['part']) for p in parts]
+    want = [(1, 'sample'), (1, 'update'), (1, 'eval'), (2, 'sample'),
+            (2, 'update'), (2, 'eval'), (0, 'eval'), (0, 'eval'),
+            (0, 'eval')]
+    if got != want or not (rec['best_after_phase1'] and rec['best_final']):
+        raise AssertionError(f'host agent parts {got}, best.p '
+                             f'{rec["best_after_phase1"]} {rec["best_final"]}')
+    updates = iter(rec['updates'])
+    for p in parts:
+        if p['part'] == 'update':
+            u = p['update'] = next(updates)
+            fwd, bwd = layers * (u['chunks'] + u['steps']), \
+                layers * u['steps']
+        elif p is parts[-2] or p is parts[-1]:   # the CPU, the baseline
+            fwd = bwd = 0
+        else:
+            fwd, bwd = layers * p['policy_steps'], 0
+        p['expected'] = {'segment_mean': fwd, 'segment_mean_backward': bwd}
+        if p['launches'] != p['expected'] or p['policy_steps'] < 1 \
+                and p['part'] != 'update':
+            raise AssertionError(f'host agent launches {p}')
+    # phase 1 (land use) leaves the road head as it was: its gradient is
+    # zero and Adam starts from zero moments; phase 2 resumes best.p's
+    # Adam moments, so the land-use head may still move by its momentum
+    road_head = sorted(k for k in rec['param_names']
+                       if k.startswith('road_head.'))
+    u1, u2 = rec['updates']
+    if u1['unchanged'] != road_head or not all(
+            k.startswith('land_use_head.') for k in u2['unchanged']):
+        raise AssertionError(f'unchanged parameters: phase 1 '
+                             f'{u1["unchanged"]}, phase 2 {u2["unchanged"]}')
+    road = np.concatenate(rec['road_rewards'])
+    if road.size < 1 or not ((road > 0) & (road <= 1)).all() \
+            or not 0 < rec['eval_rewards'][2] <= 1:
+        raise AssertionError(f'phase-2 road rewards {road.tolist()}, eval '
+                             f'{rec["eval_rewards"]}')
+    if not all(np.isfinite(x['reward']) for x in (
+            rec['eval_cuda'], rec['eval_cpu'], rec['baseline'])):
+        raise AssertionError(f'non-finite eval rewards {rec}')
+    rec.update(parts=parts, road_rewards=road)
+    return rec
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -589,7 +818,9 @@ def main():
         'grid_trainer': ('grid_initial_observation', make_batch_fns(
             spec_g)[0](broadcast_state(init_g_cpu, 1))),
         'concept': ('hlg_concept_initial_observation', make_batch_fns(
-            spec_c)[0](broadcast_state(init_c, 1)))}
+            spec_c)[0](broadcast_state(init_c, 1))),
+        'host_obs': ('grid_host_env_initial_observation',
+                     host_obs_tensors())}
     fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
                                                real_obs, t0)
 
@@ -912,7 +1143,40 @@ def main():
           in_kernel_bench_shapes=listed,
           backward_plan=segment_ops.backward_plan(p2[2], p2[3])._asdict())
 
-    phase('total', t_start)
+    # ---- 14. the host agent: train (two phases) -> eval -----------------
+    t0 = time.time()
+    host = host_agent_grid(dev, layers)
+    host_launches = {k: sum(p['launches'][k] for p in host['parts'])
+                     for k in segment_ops.launches}
+    steps = {ph: sum(p['policy_steps'] for p in host['parts']
+                     if p['phase'] == ph and p['part'] == 'sample')
+             for ph in (1, 2)}
+    host_s = {ph: sum(p['seconds'] - p['policy_seconds']
+                      for p in host['parts']
+                      if p['phase'] == ph and p['part'] == 'sample')
+              for ph in (1, 2)}
+    policy_s = {ph: sum(p['policy_seconds'] for p in host['parts']
+                        if p['phase'] == ph and p['part'] == 'sample')
+                for ph in (1, 2)}
+    phase('host_agent_grid', t0, seed=HOST_SEED,
+          episodes_per_iteration=HOST_EPISODES, iterations_per_phase=1,
+          cfg=host['cfg'], parts=host['parts'],
+          kernel_launches=host_launches,
+          host_s_per_step={ph: host_s[ph] / steps[ph] for ph in steps},
+          policy_s_per_step={ph: policy_s[ph] / steps[ph] for ph in steps},
+          phase2_road_rewards=[float(host['road_rewards'].min()),
+                               float(host['road_rewards'].max())],
+          phase2_road_episodes=int(host['road_rewards'].size),
+          eval_rewards=host['eval_rewards'], eval_cuda=host['eval_cuda'],
+          eval_cpu=host['eval_cpu'], baseline=host['baseline'],
+          greedy_steps_compared=host['greedy_steps_compared'],
+          greedy_tie_gap=host['greedy_tie_gap'],
+          peak_gb={'phase1': host['phase1_peak_bytes'] * gb,
+                   'phase2': host['phase2_peak_bytes'] * gb},
+          train_seconds=host['train_seconds'])
+
+    phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
+        'env_steps_per_sec'])
     shape = 'grid_trainer'
     kernels = [
         ('segment_mean',
@@ -921,13 +1185,15 @@ def main():
          '(segment_mean_onehot_pallas)',
          launches['segment_mean'] + train_launches['segment_mean']
          + eval_launches['segment_mean'] + grid_launches['segment_mean']
-         + two_launches['segment_mean'], fwd_err, fwd[shape]),
+         + two_launches['segment_mean'] + host_launches['segment_mean'],
+         fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
          train_launches['segment_mean_backward']
          + grid_launches['segment_mean_backward']
-         + two_launches['segment_mean_backward'], bwd_err, bwd[shape]),
+         + two_launches['segment_mean_backward']
+         + host_launches['segment_mean_backward'], bwd_err, bwd[shape]),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',

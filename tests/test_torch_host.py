@@ -4,7 +4,10 @@ urban_tpu or jax.
 
 Each copied module must be its original with the imports pointed at the
 copy and, in the two modules that find the repo root from their own path,
-one directory more counted up; anything else is drift.
+one directory more counted up; anything else is drift. One function is
+left out of one copy: ``ga_logits_jax``, the last function of
+``models/baseline.py``, which imports jax in its body (the GA path's
+batched scoring, not ported yet).
 """
 import os
 import subprocess
@@ -17,7 +20,10 @@ COPIED = ['city_config.py', 'envs/plan_client.py', 'envs/plan_table.py',
           'geometry/base.py', 'geometry/graph.py', 'geometry/metrics.py',
           'geometry/native.py', 'geometry/ops.py', 'geometry/slicer.py',
           'io/refpickle.py', 'io/scenario.py', 'io/wkb.py',
-          'utils/config.py', 'utils/io.py', 'utils/logger.py']
+          'utils/config.py', 'utils/io.py', 'utils/logger.py',
+          'envs/city.py', 'envs/observation.py', 'envs/render.py',
+          'models/baseline.py', 'rl/memory.py', 'rl/sampler.py',
+          'utils/stats.py', 'utils/video.py']
 # the root-finding lines, original -> copy
 ROOT_LINES = {
     'utils/io.py': (
@@ -32,6 +38,9 @@ ROOT_LINES = {
         "os.path.dirname(\n    os.path.dirname(os.path.abspath(__file__)))))"
         ", 'native')"),
 }
+# copies that end before their original does: path -> the original's text
+# from which the copy leaves the rest out
+LEFT_OUT_TAIL = {'models/baseline.py': '\n\n\ndef ga_logits_jax('}
 
 
 def _read(*parts):
@@ -49,6 +58,12 @@ def test_host_copy_matches_original(path):
         old, new = ROOT_LINES[path]
         assert old in want
         want = want.replace(old, new)
+    if path in LEFT_OUT_TAIL:
+        tail = want.index(LEFT_OUT_TAIL[path])
+        rest = want[tail:]   # one function: no other def or class after it
+        assert rest.count('\ndef ') == 1 and '\nclass ' not in rest
+        assert 'jax' not in want[:tail]
+        want = want[:tail] + '\n'
     assert _read('urban_tpu_torch', 'host', path) == want
 
 

@@ -1,7 +1,8 @@
 """Shared helpers of the port-vs-JAX environment tests (not a test module):
 building a scenario in both packages, converting states, and stepping a
 batch of envs in lockstep through each package's batched step
-(make_batch_fns + apply_stage_rewards, the JAX side under jax.jit)."""
+(make_batch_fns + apply_stage_rewards, the JAX side under jax.jit), and
+comparing the plans two host agents return."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -159,3 +160,24 @@ def check_scenario(name, caps, steps=8, B=2):
     lockstep(spec_j, j_broadcast(s0_j, B), spec_t,
              broadcast_state(s0_t, B), rngs, steps, where=name)
     return spec_j, s0_j, spec_t, s0_t
+
+
+def assert_same(a, b, where='plan'):
+    """Equal values: dicts, sequences, arrays, plan tables (GeoTable,
+    whichever package's copy) and their geometries; NaN equals NaN."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), where
+        for k in a:
+            assert_same(a[k], b[k], f'{where}.{k}')
+    elif hasattr(a, 'geoms') and hasattr(a, 'existence'):
+        for col in ('ids', 'types', 'existence', 'rect', 'eqi', 'sc'):
+            assert_same(getattr(a, col), getattr(b, col), f'{where}.{col}')
+        assert_same([(g.kind, g.coords) for g in a.geoms],
+                    [(g.kind, g.coords) for g in b.geoms], f'{where}.geoms')
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f'{where}[{i}]')
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=where)

@@ -28,11 +28,17 @@ B = 256
 # (name, edges, nodes, width): the rollout bench's and the trainer's HLG
 # graphs, a large graph at the widest supported width, the grid trainer's
 # graph (its road stage, 2688 feature slots), the concept scenarios'
-# trainer graph (4000 edge slots) and the graph of the grid's two-phase
+# trainer graph (4000 edge slots), the graph of the grid's two-phase
 # road phase (the frozen plan of chip_smoke.py's seed-0 run: 1600 slots)
+# and the host environment's observation (grid.yaml's max_num_nodes and
+# max_num_edges, the agent's policy step and update)
 SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('large_graph', 8192, 4096, 64), ('grid_trainer', 3000, 2688, 16),
-          ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16))
+          ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16),
+          ('host_obs', 3000, 1000, 16))
+# the batches a shape is timed at, where not only B: the host agent's
+# update takes minibatches of B rows, its policy step one observation
+BATCHES = {'host_obs': (B, 1)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order
 
@@ -148,19 +154,20 @@ def library_backward(grad, counts, edges, mask
 
 
 def measure(segment_ops, rng, dev, reps=20):
-    """Every kernel of segment_ops at every shape on random bipartite
-    graphs: error against the plain version, and the times of the kernel,
+    """Every kernel of segment_ops at every shape (at each of its BATCHES)
+    on random bipartite graphs: error against the plain version, and the times of the kernel,
     the plain version and the library call, with the bound."""
     # trees before the one forward kernel named the counts-returning
     # forward segment_mean_edge, and ran another kernel for segment_mean
     counts_fn = getattr(segment_ops, 'segment_mean_counts', None) or \
         segment_ops.segment_mean_edge
     rows = []
-    for shape, e, n, d in SHAPES:
-        edges, mask = random_graph(rng, B, e, n)
+    for shape, e, n, d, b in ((*s, b) for s in SHAPES
+                              for b in BATCHES.get(s[0], (B,))):
+        edges, mask = random_graph(rng, b, e, n)
         h = torch.where(mask[..., None], torch.as_tensor(
-            rng.normal(size=(B, e, d)), dtype=torch.float32), 0.0)
-        g = torch.as_tensor(rng.normal(size=(B, n, d)), dtype=torch.float32)
+            rng.normal(size=(b, e, d)), dtype=torch.float32), 0.0)
+        g = torch.as_tensor(rng.normal(size=(b, n, d)), dtype=torch.float32)
         h, g, edges, mask = (x.to(dev) for x in (h, g, edges, mask))
         ref, counts = segment_ops.segment_mean_counts_ref(h, edges, mask, n)
         lib_fwd, lib_out = library_forward(h, edges, mask, n)
@@ -195,7 +202,7 @@ def measure(segment_ops, rng, dev, reps=20):
                     raise AssertionError(f'{shape} {name}: error {err}, '
                                          f'library {lib_err} > {TOL}')
                 rows.append({
-                    'shape': shape, 'B': B, 'E': e, 'N': n, 'D': d,
+                    'shape': shape, 'B': b, 'E': e, 'N': n, 'D': d,
                     'kernel': name, 'max_abs_err': err,
                     'equal_to_plain': bool(torch.equal(got, want)),
                     'library_max_abs_err': lib_err,

@@ -175,3 +175,35 @@ def create_model(cfg, max_num_nodes: int | None = None,
         land_use_hidden=tuple(cfg.policy_specs['policy_land_use_head_hidden_size']),
         road_hidden=tuple(cfg.policy_specs['policy_road_head_hidden_size']),
         value_hidden=tuple(cfg.value_specs['value_head_hidden_size']))
+
+
+def create_sgnn_model(cfg) -> ActorCritic:
+    """The SGNN actor-critic at the config's own graph caps (the host
+    observation's max_num_nodes and max_num_edges)."""
+    return create_model(cfg, encoder='sgnn')
+
+
+def create_mlp_model(cfg) -> ActorCritic:
+    return create_model(cfg, encoder='mlp')
+
+
+def dummy_obs(cfg, batch: int = 1, device='cpu'):
+    """A zero observation at the config's caps, with one node, edge and
+    action unmasked and the land-use stage set, for building and
+    initialising a model."""
+    se = cfg.state_encoder_specs
+    n, e = se['max_num_nodes'], se['max_num_edges']
+    f32 = dict(dtype=torch.float32, device=device)
+    first = dict(dtype=torch.bool, device=device)
+
+    def one_hot(width):
+        m = torch.zeros((batch, width), **first)
+        m[:, 0] = True
+        return m
+    stage = torch.zeros((batch, 3), **f32)
+    stage[:, 0] = 1.0
+    return (torch.zeros((batch, NUMERICAL_DIM), **f32),
+            torch.zeros((batch, n, NODE_DIM), **f32),
+            torch.zeros((batch, e, 2), dtype=torch.int32, device=device),
+            torch.zeros((batch, NODE_DIM), **f32),
+            one_hot(n), one_hot(e), one_hot(e), one_hot(n), stage)
