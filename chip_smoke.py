@@ -28,12 +28,18 @@ the exact host environment (grid, two phases of one iteration, the policy
 and the PPO update on the card), its `eval` CLI from the best checkpoint
 on the card and on the CPU (the same greedy actions) and a baseline; both
 kernels are also checked at the host observation's graph, at the
-update's batch and at the policy step's batch of one. The launch counts
-show that each path went through its kernels.
+update's batch and at the policy step's batch of one. Then each kernel at
+B = 0 (a data-parallel rank without rows: zeros, no launch); the HLG
+trainer data parallel (run_training with 2 ranks sharing the card
+through gloo) against one device: the same sampled actions, loss stats
+and bitwise-equal ranks; the graft entry points (graft_entry) on the
+card; and the GA path: the batched population fitness card vs CPU and
+the train_ga CLI with its GeoJSON export. The launch counts show that
+each path went through its kernels.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 10-15 minutes on an H100, as fast as the host is.
+fails. About 12-17 minutes on an H100, as fast as the host is.
 """
 import dataclasses
 import json
@@ -79,6 +85,20 @@ TWO_PHASE_SEED, TWO_PHASE_ENVS, TWO_PHASE_EVAL_ENVS, TWO_PHASE_LEN = 0, 8, 1, 60
 # 500 episodes an iteration, cut to 8 (and to one iteration a phase)
 HOST_SEED, HOST_EPISODES = 111, 8
 TIE_GAP = 1e-5   # greedy card vs CPU: a top-2 logit gap this small may tie
+# data parallelism on the one card: 2 ranks share it through gloo, each
+# with 8 of the 16 envs (35 steps: HLG episodes end, as in `train`), 4
+# epochs of 2 minibatches of 256 rows split between the ranks; the loss
+# stats within the JAX dry run's gate of the one-device control
+DP_RANKS, DP_ENVS, DP_LEN, DP_EVAL_ENVS, DP_GATE = 2, 16, 35, 2, 5e-2
+DP_TIMEOUT = 900.0       # seconds, each spawned run
+# the GA: GA_CMP_GENES greedy genes on HLG for 45 steps (as
+# tests/test_ga_vmap.py), the card against the CPU within f32
+# episode-reward rounding (4, not 8: the script passed 900 s with 8);
+# then the train_ga CLI for one generation of GA_GENES, at the first of
+# GA_SEEDS whose best gene's greedy host episode succeeds (a failed one
+# has no plan)
+GA_CMP_GENES, GA_GENES, GA_STEPS, TOL_GA = 4, 8, 45, 1e-5
+GA_SEEDS = (0, 1, 2)
 
 
 def phase(name, t0, **kv):
@@ -762,6 +782,237 @@ def host_agent_grid(dev, layers):
     return rec
 
 
+def empty_batch_kernels(segment_ops, dev, e, n, d):
+    """One call of each kernel's wrapper at B = 0 on the card (a
+    data-parallel rank without rows in a minibatch): zeros of the right
+    shapes on the card, and no launch."""
+    before = dict(segment_ops.launches)
+    edges = torch.zeros((0, e, 2), dtype=torch.int32, device=dev)
+    mask = torch.ones((0, e), dtype=torch.bool, device=dev)
+    out, counts = segment_ops.segment_mean_counts(
+        torch.zeros((0, e, d), device=dev), edges, mask, n)
+    dh = segment_ops.segment_mean_backward(
+        torch.zeros((0, n, d), device=dev), counts, edges, mask)
+    torch.cuda.synchronize()
+    shapes = [list(x.shape) for x in (out, counts, dh)]
+    if shapes != [[0, n, d], [0, n], [0, e, d]] or any(
+            x.device != dev for x in (out, counts, dh)) \
+            or segment_ops.launches != before:
+        raise AssertionError(f'B = 0: shapes {shapes}, launches '
+                             f'{segment_ops.launches} (before {before})')
+    return {'shapes': shapes, 'launches': 0}
+
+
+def sampled_gaps(model, obs_seq, gen_state, B, dev):
+    """Replays a collect of the trainer (its observations, the parameters
+    and the generator state it started from): each step draws the explore
+    draw, then each head's Gumbel noise, in the rollout's order. Returns
+    (T, B) the gap between the top two perturbed logits of the head that
+    chose each action (what a rounding difference would have to cross to
+    change it) and the (T, B, 2) actions the replay takes."""
+    from urban_tpu_torch.models.policy import gumbel_scores, uniform
+    gen = torch.Generator(device=dev)
+    gen.set_state(gen_state)
+    gaps, picks = [], []
+    with torch.no_grad():
+        for t in range(obs_seq[0].shape[0]):
+            uniform((B,), gen, dev)    # the explore draw (noise rate 1)
+            lu, rd, stage, _ = model(tuple(o[t] for o in obs_seq))
+            tops = [torch.topk(gumbel_scores(x, gen), 2, dim=-1)
+                    for x in (lu, rd)]
+            in_lu, in_rd = stage[:, 0] > 0.5, stage[:, 1] > 0.5
+            gap = [x.values[:, 0] - x.values[:, 1] for x in tops]
+            gaps.append(torch.where(in_lu, gap[0], torch.where(
+                in_rd, gap[1], torch.inf)))
+            picks.append(torch.stack([
+                torch.where(in_lu, tops[0].indices[:, 0], 0),
+                torch.where(in_rd, tops[1].indices[:, 0], 0)], dim=-1))
+    return torch.stack(gaps).cpu().numpy(), \
+        torch.stack(picks).cpu().numpy()
+
+
+def dp_train_hlg(dev, layers):
+    """run_training on HLG with DP_RANKS ranks sharing the card (spawned,
+    gloo), then the same call on one device as the control, whose collect
+    is kept for sampled_gaps. Every rank's parameters must be bitwise
+    equal; each sampled action equal to the control's, or its env's first
+    difference at a perturbed top-2 gap under TIE_GAP; the loss stats
+    within DP_GATE of the control's; each rank's launches exact: collect
+    and eval DP_LEN x layers forward, the update layers forward and
+    backward for each minibatch step in which the rank held rows."""
+    import copy
+    from urban_tpu_torch.host.utils.config import Config
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    from urban_tpu_torch.rl.ppo import STAT_KEYS
+    T = trainer_mod.Trainer
+    kept, orig_collect = {}, T.collect
+
+    def collect(self):
+        kept['generator'] = self.generator.get_state()
+        kept['model'] = copy.deepcopy(self.model)
+        traj = orig_collect(self)
+        kept['obs'] = traj.obs
+        return traj
+
+    def run(root, n, device):
+        return trainer_mod.run_training(
+            Config('hlg', 0, root_dir=root), 1, DP_ENVS, num_devices=n,
+            rollout_len=DP_LEN, eval_envs=DP_EVAL_ENVS, device=device,
+            timeout=DP_TIMEOUT)
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        t = time.time()
+        ranks = run(os.path.join(run_dir, 'dp'), DP_RANKS, 'cuda')
+        dp_seconds = time.time() - t
+        T.collect = collect
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        try:
+            one = run(os.path.join(run_dir, 'one'), 1, dev)
+        finally:
+            T.collect = orig_collect
+        one_seconds = time.time() - t
+        one_peak = torch.cuda.max_memory_allocated(dev)
+    if [r['rank'] for r in ranks] != list(range(DP_RANKS)) or any(
+            r['backend'] != 'gloo' or r['device'] != str(dev)
+            for r in ranks):
+        raise AssertionError('ranks ' + str([
+            (r['rank'], r['backend'], r['device']) for r in ranks]))
+    differ = sorted(k for r in ranks[1:] for k, v in r['params'].items()
+                    if not torch.equal(v, ranks[0]['params'][k]))
+    if differ:
+        raise AssertionError(f'ranks\' parameters differ: {differ}')
+    gaps, replayed = sampled_gaps(kept['model'], kept['obs'],
+                                  kept['generator'], DP_ENVS, dev)
+    control = one.last_actions
+    dp_actions = np.concatenate([r['last_actions'] for r in ranks], axis=1)
+    ties = {}
+    for name, acts in (('replay', replayed), ('dp', dp_actions)):
+        for b in range(DP_ENVS):
+            bad = np.flatnonzero((acts[:, b] != control[:, b]).any(-1))
+            if bad.size:
+                ties.setdefault(name, []).append(
+                    [b, int(bad[0]), float(gaps[bad[0], b])])
+                if not gaps[bad[0], b] < TIE_GAP:
+                    raise AssertionError(f'{name} env {b} step {bad[0]}: '
+                                         f'{acts[bad[0], b]} vs control '
+                                         f'{control[bad[0], b]}, gap '
+                                         f'{gaps[bad[0], b]}')
+    equal = int((dp_actions == control).all(-1).sum())
+    (st_one,) = one.history
+    rel = {k: abs(ranks[0]['history'][0].losses[k] - st_one.losses[k])
+           / max(abs(st_one.losses[k]), 1e-9) for k in STAT_KEYS}
+    if not max(rel.values()) < DP_GATE:
+        raise AssertionError(f'dp loss stats vs control: {rel}')
+    launches, per_rank = {}, []
+    for r in [*ranks, None]:
+        st = r['history'][0] if r else st_one
+        steps = sum(1 for n in st.minibatch_rows if n)
+        fwd = {'segment_mean': DP_LEN * layers, 'segment_mean_backward': 0}
+        want = {'collect': fwd, 'eval': fwd,
+                'update': {'segment_mean': steps * layers,
+                           'segment_mean_backward': steps * layers}}
+        if st.kernel_launches != want:
+            raise AssertionError(f'rank {r and r["rank"]} launches '
+                                 f'{st.kernel_launches} != {want}')
+        for part in want.values():
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+        if r:
+            per_rank.append({
+                'rank': r['rank'], 'minibatch_rows': st.minibatch_rows,
+                'launches': st.kernel_launches,
+                'peak_gb': r['peak_bytes'] / 2 ** 30,
+                't_sample_s': st.sample_time, 't_update_s': st.update_time,
+                'episodes': st.episodes, 'failures': st.failures})
+    rows = np.array([r['minibatch_rows'] for r in per_rank]).sum(0)
+    if rows.tolist() != st_one.minibatch_rows:
+        raise AssertionError(f'the ranks\' rows {rows.tolist()} are not the '
+                             f'control\'s minibatches '
+                             f'{st_one.minibatch_rows}')
+    if not (st_one.episodes >= 1 and all(
+            np.isfinite(v) for v in st_one.losses.values())):
+        raise AssertionError(f'control iteration {st_one}')
+    return {
+        'ranks': per_rank, 'backend': ranks[0]['backend'],
+        'ranks_per_device': ranks[0]['ranks_per_device'],
+        'equal_actions': equal, 'actions': int(control.shape[0]
+                                               * control.shape[1]),
+        'first_differences_env_step_gap': ties,
+        'min_perturbed_gap': float(gaps.min()),
+        'loss_max_rel_diff': max(rel.values()), 'gate': DP_GATE,
+        'losses': ranks[0]['history'][0].losses,
+        'control_losses': st_one.losses,
+        'params_max_abs_diff_vs_control': max(
+            float((v.cpu() - ranks[0]['params'][k]).abs().max())
+            for k, v in one.model.state_dict().items()),
+        'episodes': [ranks[0]['history'][0].episodes, st_one.episodes],
+        'eval_reward': [ranks[0]['history'][0].eval_reward,
+                        st_one.eval_reward],
+        'kernel_launches': launches,
+        'control': {'t_sample_s': st_one.sample_time,
+                    't_update_s': st_one.update_time,
+                    'launches': st_one.kernel_launches,
+                    'peak_gb': one_peak / 2 ** 30},
+        'dp_seconds': dp_seconds, 'control_seconds': one_seconds}
+
+
+def ga_population_hlg(dev):
+    """make_ga_population_fitness on HLG: GA_CMP_GENES greedy genes for
+    GA_STEPS steps on the card and on the CPU, within TOL_GA; then the
+    train_ga CLI for one generation of GA_GENES with --tpu_env on the
+    card, its --export_geojson read back. The GA runs no kernel."""
+    from urban_tpu_torch import bench, train_ga
+    from urban_tpu_torch.host.io.geojson import load_geojson
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl.ga import make_ga_population_fitness
+    _, spec, init = bench.setup('hlg', {}, 'cpu')
+    genes = np.random.default_rng(0).uniform(-5, 5,
+                                             size=(GA_CMP_GENES, 47))
+    segment_ops.reset_launches()
+    fit, secs = {}, {}
+    for where in (dev, 'cpu'):
+        t = time.time()
+        fit[str(where)] = make_ga_population_fitness(
+            spec, init, GA_STEPS, mean_action=True, seed=0,
+            device=where)(genes)
+        secs[str(where)] = time.time() - t
+    card, cpu = fit[str(dev)], fit['cpu']
+    err = float(np.abs(card - cpu).max())
+    if not (err <= TOL_GA and (card > 0).any()):
+        raise AssertionError(f'GA fitness card {card} cpu {cpu}')
+    attempts = []
+    with tempfile.TemporaryDirectory() as run_dir:
+        path = os.path.join(run_dir, 'plan.geojson')
+        for seed in GA_SEEDS:
+            t = time.time()
+            agent, ga, plan = train_ga.main([
+                '--cfg', 'hlg', '--global_seed', str(seed),
+                '--num_generations', '1', '--sol_per_pop', str(GA_GENES),
+                '--tpu_env', '--device', 'cuda', '--root_dir', run_dir,
+                '--export_geojson', path])
+            attempts.append({'seed': seed, 'seconds': time.time() - t,
+                             'best_fitness': ga.best_solutions_fitness,
+                             'greedy_plan': 'gdf' in plan})
+            if 'gdf' in plan:
+                break
+        else:
+            raise AssertionError(f'no greedy GA plan to export: {attempts}')
+        table, want = load_geojson(path), plan['gdf']
+        if not (len(table) == len(want) > 0
+                and np.array_equal(table.ids, want.ids)
+                and np.array_equal(table.types, want.types)):
+            raise AssertionError('the exported GeoJSON plan reads back '
+                                 'otherwise')
+    if segment_ops.launches != {'segment_mean': 0,
+                                'segment_mean_backward': 0}:
+        raise AssertionError(f'the GA launched {segment_ops.launches}')
+    return {'genes': GA_CMP_GENES, 'steps': GA_STEPS, 'fitness_card':
+            card.tolist(), 'max_abs_err_vs_cpu': err, 'tolerance': TOL_GA,
+            'fitness_seconds': secs, 'train_ga': attempts,
+            'exported_features': len(table), 'kernel_launches': 0}
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1175,6 +1426,48 @@ def main():
                    'phase2': host['phase2_peak_bytes'] * gb},
           train_seconds=host['train_seconds'])
 
+    # ---- 15. each kernel at B = 0 -----------------------------------------
+    t0 = time.time()
+    phase('empty_batch_kernels', t0, **empty_batch_kernels(
+        segment_ops, dev, E_T, N_T, cfg_t.state_encoder_specs['gcn_node_dim']))
+
+    # ---- 16. data parallelism: 2 ranks on the card vs one device ---------
+    t0 = time.time()
+    dp = dp_train_hlg(dev, layers)
+    phase('dp_train_hlg', t0, envs=DP_ENVS, rollout_len=DP_LEN,
+          eval_envs=DP_EVAL_ENVS, **dp)
+
+    # both kernels at a rank's share of the update's minibatch (B 128 of
+    # 256 at the HLG trainer's graph): timed on a random graph, checked on
+    # the HLG trainer's initial observation
+    t0 = time.time()
+    f_dp, b_dp, e_f, e_b = check_kernels(
+        kb, segment_ops, dev,
+        {'dp_rank_update': ('hlg_initial_observation', obs_t)}, t0,
+        shapes=[kb.DP_RANK_UPDATE])
+    fwd.update(f_dp)
+    bwd.update(b_dp)
+    fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
+    phase('dp_rank_kernels', t0, shape=list(kb.DP_RANK_UPDATE),
+          batch=kb.BATCHES['dp_rank_update'][0])
+
+    # ---- 17. the graft entry points -------------------------------------
+    t0 = time.time()
+    from urban_tpu_torch import graft_entry
+    fn, args = graft_entry.entry('cuda')
+    reward, done, value = fn(*args)
+    torch.cuda.synchronize()
+    shapes = [list(x.shape) for x in (reward, done, value)]
+    if shapes != [[8], [8], [8, 1]] or not bool(
+            torch.isfinite(reward).all() and torch.isfinite(value).all()):
+        raise AssertionError(f'entry step {shapes}')
+    dry = graft_entry.dryrun_multichip(DP_RANKS, 'cuda', timeout=DP_TIMEOUT)
+    phase('graft_dryrun', t0, entry_shapes=shapes, ranks=DP_RANKS, **dry)
+
+    # ---- 18. the GA: population fitness, train_ga ---------------------------
+    t0 = time.time()
+    phase('ga_population_hlg', t0, **ga_population_hlg(dev))
+
     phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
         'env_steps_per_sec'])
     shape = 'grid_trainer'
@@ -1185,15 +1478,17 @@ def main():
          '(segment_mean_onehot_pallas)',
          launches['segment_mean'] + train_launches['segment_mean']
          + eval_launches['segment_mean'] + grid_launches['segment_mean']
-         + two_launches['segment_mean'] + host_launches['segment_mean'],
-         fwd_err, fwd[shape]),
+         + two_launches['segment_mean'] + host_launches['segment_mean']
+         + dp['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
          train_launches['segment_mean_backward']
          + grid_launches['segment_mean_backward']
          + two_launches['segment_mean_backward']
-         + host_launches['segment_mean_backward'], bwd_err, bwd[shape]),
+         + host_launches['segment_mean_backward']
+         + dp['kernel_launches']['segment_mean_backward'], bwd_err,
+         bwd[shape]),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',

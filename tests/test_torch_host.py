@@ -7,7 +7,7 @@ copy and, in the two modules that find the repo root from their own path,
 one directory more counted up; anything else is drift. One function is
 left out of one copy: ``ga_logits_jax``, the last function of
 ``models/baseline.py``, which imports jax in its body (the GA path's
-batched scoring, not ported yet).
+batched scoring, ported as ``urban_tpu_torch.models.baseline.ga_logits``).
 """
 import os
 import subprocess
@@ -19,7 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ['city_config.py', 'envs/plan_client.py', 'envs/plan_table.py',
           'geometry/base.py', 'geometry/graph.py', 'geometry/metrics.py',
           'geometry/native.py', 'geometry/ops.py', 'geometry/slicer.py',
-          'io/refpickle.py', 'io/scenario.py', 'io/wkb.py',
+          'io/geojson.py', 'io/refpickle.py', 'io/scenario.py', 'io/wkb.py',
           'utils/config.py', 'utils/io.py', 'utils/logger.py',
           'envs/city.py', 'envs/observation.py', 'envs/render.py',
           'models/baseline.py', 'rl/memory.py', 'rl/sampler.py',

@@ -263,8 +263,8 @@ def test_ppo_update_epoch_matches_jax(jax_model):
             jnp.asarray(exps), jnp.asarray(perm), 3, 4, jnp.asarray(valid))
         t_stats = tppo.ppo_update_epoch(
             tm, opt_t, cfg_t, _t(obs),
-            *_t((actions, returns, adv, fixed, exps)), torch.as_tensor(perm),
-            3, 4, torch.as_tensor(valid))
+            *_t((actions, returns, adv, fixed, exps)),
+            torch.as_tensor(perm).split(4), torch.as_tensor(valid))
         for k in tppo.STAT_KEYS:
             np.testing.assert_allclose(float(t_stats[k]), float(j_stats[k]),
                                        rtol=1e-4, atol=1e-4, err_msg=k)

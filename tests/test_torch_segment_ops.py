@@ -190,3 +190,25 @@ def test_kernel_on_card():
     assert torch.equal(out.cpu(), cpu_out)
     assert torch.equal(counts.cpu(), cpu_counts)
     assert float((out - ref).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize('B,E', [(0, 96), (3, 0), (0, 0)])
+def test_empty_batch_gives_zeros_without_launch(B, E):
+    """No rows (a data-parallel rank's share of a minibatch) or no edges:
+    the forward, its counts and the backward are zeros of their shapes,
+    through the wrappers' guard, which the card's path takes too, and no
+    launch is counted."""
+    N, D = 40, 8
+    h = torch.zeros((B, E, D), requires_grad=True)
+    edges = torch.zeros((B, E, 2), dtype=torch.int32)
+    mask = torch.ones((B, E), dtype=torch.bool)
+    before = dict(segment_ops.launches)
+    out, counts = segment_ops.segment_mean_counts(h.detach(), edges, mask, N)
+    assert out.shape == (B, N, D) and counts.shape == (B, N)
+    assert not out.any() and not counts.any()
+    dh = segment_ops.segment_mean_backward(torch.ones((B, N, D)), counts,
+                                           edges, mask)
+    assert dh.shape == (B, E, D) and not dh.any()
+    segment_ops.segment_mean(h, edges, mask, N).sum().backward()
+    assert h.grad.shape == (B, E, D)
+    assert segment_ops.launches == before

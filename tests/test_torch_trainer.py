@@ -86,7 +86,10 @@ def test_trainer_update_matches_tpu_trainer(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('option,value', [('num_devices', 4)])
 def test_run_training_refuses_what_is_not_ported(option, value, tmp_path):
+    """Data parallelism is ported; what run_training still refuses is an
+    impossible request: 2 envs do not split over 4 ranks (JAX's message,
+    before any rank is spawned)."""
     from urban_tpu_torch.rl.trainer import run_training
     cfg = TorchConfig('hlg', 0, root_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='divisible'):
         run_training(cfg, 1, 2, device='cpu', **{option: value})

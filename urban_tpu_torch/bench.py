@@ -56,7 +56,9 @@ def load_config(name: str) -> SimpleNamespace:
         state_encoder_specs=cfg.get('state_encoder_specs', dict()),
         policy_specs=cfg.get('policy_specs', dict()),
         value_specs=cfg.get('value_specs', dict()),
-        max_sequence_length=cfg.get('max_sequence_length', 100))
+        max_sequence_length=cfg.get('max_sequence_length', 100),
+        lr=cfg.get('lr', 4e-4), clip_epsilon=cfg.get('clip_epsilon', 0.2),
+        gamma=cfg.get('gamma', 0.99), tau=cfg.get('tau', 0.95))
 
 
 @functools.lru_cache(maxsize=8)

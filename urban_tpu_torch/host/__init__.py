@@ -1,6 +1,6 @@
 """The numpy host tier of urban_tpu that the port needs, as the port's own
-copy: scenario loading and the plan tables (``envs.plan_client``,
-``envs.plan_table``, ``io``), the exact host geometry (``geometry``), the
+copy: scenario loading, the plan tables and their GeoJSON form
+(``envs.plan_client``, ``envs.plan_table``, ``io``), the exact host geometry (``geometry``), the
 land-use constants (``city_config``), the run configuration
 (``utils``), and the reference API's host path: the exact environment
 (``envs.city``, ``envs.observation``, ``envs.render``), the host sampler
@@ -15,6 +15,6 @@ imports pointed here; ``utils/io.py`` and ``geometry/native.py`` also
 count one directory more up to the repo root, where the scenario data
 (``urban_tpu/cfg``) and the native contiguity source (``native/``) stay.
 ``models/baseline.py`` leaves out its last function, ``ga_logits_jax``
-(it imports jax). ``tests/test_torch_host.py`` holds every copy to its
+(it imports jax; the port's is ``urban_tpu_torch.models.baseline``). ``tests/test_torch_host.py`` holds every copy to its
 original.
 """

@@ -21,6 +21,9 @@ gradient.
   and ``segment_mean_backward_ref``. ``launches`` counts the kernel
   launches, one entry per kernel.
 
+An empty batch (B = 0, a data-parallel rank without rows in a minibatch)
+or graph (E = 0) gives zeros of the right shape without a launch.
+
 Semantics shared by all: masked edges add to neither the sum nor the count
 (and get a zero gradient row), an unmasked self-loop counts twice, endpoint
 indices outside ``[0, num_nodes)`` are dropped, and the divisor is
@@ -285,13 +288,15 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
     _check(h_edges, edges, edge_mask, num_nodes)
     dev = _device(h_edges)
     N = int(num_nodes)
+    B, E, D = h_edges.shape
+    if B == 0 or E == 0:   # no rows (a data-parallel rank's share) or edges
+        return (h_edges.new_zeros((B, N, D)), h_edges.new_zeros((B, N)))
     if dev.type == 'cpu':
         with torch.no_grad():
             return segment_mean_counts_ref(h_edges, edges, edge_mask, N)
     if h_edges.data_ptr() % 16 or edges.data_ptr() % 8:
         raise ValueError('segment_mean: h_edges must be 16-byte and edges '
                          '8-byte aligned')
-    B, E, D = h_edges.shape
     with torch.cuda.device(dev):
         if not load_library('segment_mean').segment_mean_fits(N, E):
             raise ValueError(f'segment_mean: a graph of {N} nodes and {E} '
@@ -325,6 +330,8 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
         raise ValueError('all tensors must share a device')
     if not (grad_out.is_contiguous() and counts.is_contiguous()):
         raise ValueError('grad_out and counts must be contiguous')
+    if B == 0 or E == 0:
+        return grad_out.new_zeros((B, E, D))
     if grad_out.data_ptr() % 16 or edges.data_ptr() % 8:
         raise ValueError('segment_mean_backward: grad_out must be 16-byte '
                          'and edges 8-byte aligned')

@@ -20,26 +20,40 @@ plan, and the phase-1 best parameters are carried over where their names
 and shapes fit, ``transfer_matching_params``), then ``iterations`` of
 roads only. The encoder is the SGNN or the MLP ablation (``--encoder``).
 
+With ``--num_devices N`` > 1 (-1: every visible card) the run is data
+parallel (``urban_tpu_torch.parallel.mesh``): N ranks, each stepping its
+block of num_envs / N environments, computing the same thing as one
+device. The random stream does not depend on N: every draw is made at
+the whole batch's size and each rank keeps its rows (``RowShard``). The
+update takes the one-device minibatches (the same permutation on every
+rank), each rank the rows of its own environments, with the gradients
+all-reduced; every batch-wide statistic is reduced over the ranks. The
+greedy eval runs whole on every rank, so every rank holds the same best
+plan and freezes it alike; rank 0 alone writes logs, TensorBoard and
+checkpoints, and after each iteration the ranks' parameters must be
+bitwise equal.
+
     python -m urban_tpu_torch.rl.trainer --cfg hlg --iterations 1 \
         --num_envs 2 --device cpu
+    python -m urban_tpu_torch.rl.trainer --cfg hlg --iterations 1 \
+        --num_envs 4 --num_devices 2 --rollout_len 3 --device cpu
     python -m urban_tpu_torch.rl.trainer --cfg grid --separate_train \
         --encoder sgnn --iterations 1 --num_envs 2 --rollout_len 60 \
         --device cpu
-
-Not in this port yet (ROADMAP.md, queue 1), and refused with
-NotImplementedError: the data-parallel mesh (``--num_devices`` > 1).
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from urban_tpu_torch.host import city_config
@@ -47,6 +61,11 @@ from urban_tpu_torch.host.envs.plan_client import PlanClient
 from urban_tpu_torch.host.utils.config import Config
 from urban_tpu_torch.host.utils.logger import create_logger
 from urban_tpu_torch.models.model import create_model, init_like_flax
+from urban_tpu_torch.models.policy import RowShard
+from urban_tpu_torch.ops import segment_ops
+from urban_tpu_torch.parallel.mesh import (Mesh, check_replicated,
+                                           local_minibatch_rows, make_mesh,
+                                           replicate, spawn, visible_devices)
 from urban_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update_epoch
 from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
                                               episode_success_weights,
@@ -61,9 +80,6 @@ from urban_tpu_torch.torchenv.step import (batched_road_network_reward,
                                            greenness_reward,
                                            life_circle_reward)
 
-NOT_PORTED = ('is not ported to urban_tpu_torch yet (ROADMAP.md, queue 1)')
-
-
 @dataclass
 class TrainStats:
     iteration: int
@@ -77,6 +93,10 @@ class TrainStats:
     sample_time: float = float('nan')
     losses: Dict[str, float] = field(default_factory=dict)
     failure_causes: Dict[str, int] = field(default_factory=dict)
+    # this rank's kernel launches in each part ('collect', 'update',
+    # 'eval'), and its rows in each minibatch step of the update
+    kernel_launches: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    minibatch_rows: List[int] = field(default_factory=list)
 
 
 @torch.no_grad()
@@ -95,14 +115,33 @@ def _reward_channels(spec, states):
     return life, green, road
 
 
+def check_divisible(num_envs: int, n_devices: int) -> None:
+    if num_envs % n_devices:
+        raise ValueError(
+            f'num_envs={num_envs} must be divisible by the {n_devices}-device '
+            f'dp mesh (environments shard evenly across devices)')
+
+
+def _quiet_logger(name: str) -> logging.Logger:
+    logger = logging.getLogger(name)
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
+
+
 class Trainer:
 
     def __init__(self, cfg: Config, num_envs: Optional[int] = None,
                  rollout_len: Optional[int] = None, eval_envs: int = 16,
                  device='cuda', use_tensorboard: bool = False,
-                 keep_boundaries: bool = False, encoder: str = 'sgnn'):
+                 keep_boundaries: bool = False, encoder: str = 'sgnn',
+                 mesh: Optional[Mesh] = None):
+        """mesh: this rank's data-parallel mesh (make_mesh); its device
+        replaces `device`. Without one the trainer runs on one device."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(1, device)
+        self.device = self.mesh.device
         self.encoder = encoder
         self.plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
         # the JAX trainer's spec: default capacities, the config's edge cap;
@@ -113,16 +152,23 @@ class Trainer:
         self.init_state = build_initial_state(self.spec, self.plc,
                                               device=self.device)
         self.num_envs = num_envs or cfg.rollout_specs.get('num_envs', 256)
+        check_divisible(self.num_envs, self.mesh.world_size)
+        # this rank's envs: rows [env_start, env_start + local_envs)
+        self.local_envs = self.num_envs // self.mesh.world_size
+        self.env_start = self.mesh.rank * self.local_envs
         # the rollout window must cover a full episode: episodes that span
         # the window boundary are excluded from training by the success
         # filter
         self.rollout_len = rollout_len or getattr(
             cfg, 'original_max_sequence_length', cfg.max_sequence_length)
         self.eval_envs = eval_envs
-        self.logger = create_logger(os.path.join(cfg.log_dir,
-                                                 'log_train_torch.txt'))
+        if self.mesh.is_main:
+            self.logger = create_logger(os.path.join(cfg.log_dir,
+                                                     'log_train_torch.txt'))
+        else:
+            self.logger = _quiet_logger(f'{__name__}.rank{self.mesh.rank}')
         self.tb = None
-        if use_tensorboard:
+        if use_tensorboard and self.mesh.is_main:
             from torch.utils.tensorboard import SummaryWriter
             self.tb = SummaryWriter(cfg.tb_dir)
         self.ppo_cfg = PPOConfig(clip_epsilon=cfg.clip_epsilon,
@@ -143,6 +189,9 @@ class Trainer:
         self.frozen_table = None          # the frozen land-use plan
         self.warm_start = None            # (copied, total) into phase 2
         self.last_value_mc_rms = float('nan')
+        self.last_minibatch_rows = []     # this rank's rows, each mb step
+        self.last_actions = None          # the last collect's (T, B, 2)
+        self.history: List[TrainStats] = []   # every train_iteration's
 
     def _init_model(self):
         """Build the model, initialized as Flax initializes the JAX one
@@ -159,11 +208,12 @@ class Trainer:
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(),
                                         self.ppo_cfg)
+        replicate(self.mesh, self.model, self.optimizer)
 
     def _reset_env_batch(self):
         self.env_states = broadcast_state(
             self.init_state.replace(done=torch.ones_like(
-                self.init_state.done)), self.num_envs)
+                self.init_state.done)), self.local_envs)
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -171,15 +221,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def collect(self):
+        """This rank's (T, local_envs) trajectory; its random draws are its
+        rows of the whole batch's."""
+        generator = self.generator
+        if self.mesh.world_size > 1:
+            generator = RowShard(generator, self.env_start, self.num_envs)
         self.env_states, traj = rollout(
             self.spec, self.model, self.init_state, self.env_states,
-            self.generator, self.rollout_len)
+            generator, self.rollout_len)
         return traj
 
     def update(self, traj, iteration: int, weights=None):
         """num_optim_epoch shuffled epochs of PPO minibatch steps on the
-        trajectory; returns the last epoch's mean loss stats."""
-        cfg = self.cfg
+        trajectory (this rank's rows of each one-device minibatch);
+        returns the last epoch's mean loss stats."""
+        cfg, mesh = self.cfg, self.mesh
         T, B = traj.rewards.shape
         if weights is None:
             weights = episode_success_weights(traj.dones, traj.failures)
@@ -192,10 +248,12 @@ class Trainer:
                                     cfg.gamma, 1.0)
         w = weights.reshape(-1)
         gap = (traj.values - mc_returns).reshape(-1)
+        sums = mesh.all_reduce(torch.stack([(gap * gap * w).sum(), w.sum()]))
         self.last_value_mc_rms = float(torch.sqrt(
-            (gap * gap * w).sum() / torch.clamp_min(w.sum(), 1.0)))
+            sums[0] / torch.clamp_min(sums[1], 1.0)))
         if cfg.agent_specs.get('normalize_advantages', False):
-            advantages = normalize_advantages(advantages, weights)
+            advantages = normalize_advantages(advantages, weights,
+                                              mesh.group)
         n = T * B
         flat_obs = tuple(o.reshape((n,) + o.shape[2:]) for o in traj.obs)
         actions = traj.actions.reshape(n, 2)
@@ -207,14 +265,22 @@ class Trainer:
         valid = weights.reshape(n)
         exps = (traj.exps * weights).reshape(n)
 
-        mb = min(cfg.mini_batch_size, n)
-        num_mb = max(n // mb, 1)
+        # the one-device run's minibatches over all num_envs envs
+        n_all = T * self.num_envs
+        mb = min(cfg.mini_batch_size, n_all)
+        num_mb = max(n_all // mb, 1)
         rng = np.random.default_rng(cfg.seed + iteration)
+        self.last_minibatch_rows = []
         for _ in range(cfg.num_optim_epoch):
-            perm = torch.as_tensor(rng.permutation(n), device=self.device)
+            rows = local_minibatch_rows(rng.permutation(n_all), num_mb, mb,
+                                        self.num_envs, mesh)
+            counts = [len(r) for r in rows]
+            self.last_minibatch_rows += counts
             stats = ppo_update_epoch(
                 self.model, self.optimizer, self.ppo_cfg, flat_obs, actions,
-                returns, advantages, fixed_lp, exps, perm, num_mb, mb, valid)
+                returns, advantages, fixed_lp, exps, torch.split(
+                    torch.as_tensor(np.concatenate(rows), device=self.device),
+                    counts), valid, mesh.group)
         return stats
 
     # ------------------------------------------------------------------
@@ -260,33 +326,58 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_iteration(self, iteration: int,
                         do_eval: bool = True) -> TrainStats:
+        """collect, update, eval; the statistics are the whole batch's,
+        reduced over the ranks, and the ranks' parameters must come out
+        bitwise equal."""
+        launches = {}
+
+        def count(part, t_before):
+            launches[part] = {k: segment_ops.launches[k] - t_before[k]
+                              for k in t_before}
         t0 = time.perf_counter()
+        before = dict(segment_ops.launches)
         traj = self.collect()
         self._sync()
+        count('collect', before)
         t1 = time.perf_counter()
-        dones = traj.dones.cpu().numpy()
-        fails = traj.failures.cpu().numpy()
-        rewards = traj.rewards.cpu().numpy()
-        causes = failure_causes(failure_histogram(traj.failure_codes).cpu())
+        self.last_actions = traj.actions.cpu().numpy()
         weights_dev = episode_success_weights(traj.dones, traj.failures)
-        weights = weights_dev.cpu().numpy()
-        term = dones & ~fails
-        mean_ep = float(rewards[term].mean()) if term.any() else -1.0
+        term = traj.dones & ~traj.failures
+        # episodes, failures, successful episodes and their reward sum,
+        # the success weights' sum and count, the failure histogram
+        totals = self.mesh.all_reduce(torch.cat([torch.stack([
+            traj.dones.sum().double(), traj.failures.sum().double(),
+            term.sum().double(),
+            torch.where(term, traj.rewards, 0.0).double().sum(),
+            weights_dev.double().sum(),
+            torch.tensor(weights_dev.numel(), dtype=torch.float64,
+                         device=self.device)]),
+            failure_histogram(traj.failure_codes).double()])).cpu().numpy()
+        episodes, failures, n_term, term_reward, w_sum, w_n = totals[:6]
+        causes = failure_causes(totals[6:].astype(np.int64))
+        mean_ep = float(term_reward / n_term) if n_term else -1.0
+        before = dict(segment_ops.launches)
         stats = self.update(traj, iteration, weights=weights_dev)
         losses = {k: float(v) for k, v in stats.items()}
         self._sync()
+        count('update', before)
         t2 = time.perf_counter()
         eval_r = float('nan')
         if do_eval:
+            before = dict(segment_ops.launches)
             eval_r, _ = self.eval_agent(iteration)
-        n_steps = rewards.size
+            count('eval', before)
+        check_replicated(self.mesh, self.model)
+        n_steps = int(w_n)
         out = TrainStats(
-            iteration=iteration, episodes=int(dones.sum()),
-            failures=int(fails.sum()), mean_episode_reward=mean_ep,
-            success_frac=float(weights.mean()),
+            iteration=iteration, episodes=int(episodes),
+            failures=int(failures), mean_episode_reward=mean_ep,
+            success_frac=float(w_sum / w_n),
             steps_per_sec=n_steps / max(t1 - t0, 1e-9),
             update_time=t2 - t1, eval_reward=eval_r, sample_time=t1 - t0,
-            losses=losses, failure_causes=causes)
+            losses=losses, failure_causes=causes, kernel_launches=launches,
+            minibatch_rows=list(self.last_minibatch_rows))
+        self.history.append(out)
         self.logger.info(
             f'{iteration}\tT_sample {t1 - t0:.2f}\tT_update {t2 - t1:.2f}\t'
             f'steps/s {out.steps_per_sec:.0f}\teps {out.episodes}\t'
@@ -304,7 +395,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, iteration: int, tag: str = None) -> None:
         """torch.save checkpoint with the best-plan payload; best.pt holds
-        the parameters snapshotted when the best eval was reached."""
+        the parameters snapshotted when the best eval was reached. Only
+        rank 0 writes."""
+        if not self.mesh.is_main:
+            return
         name = tag or f'iteration_{iteration:04d}'
         common = {'iteration': iteration,
                   'best_reward': self.best_reward,
@@ -339,6 +433,7 @@ class Trainer:
         self.model.load_state_dict(ckpt['params'])
         if ckpt.get('opt_state') is not None:
             self.optimizer.load_state_dict(ckpt['opt_state'])
+        replicate(self.mesh, self.model, self.optimizer)
         self.start_iteration = ckpt['iteration'] + 1
         self.best_plan_state = ckpt.get('best_plan_state')
         self.best_params = ckpt.get('best_params')
@@ -402,6 +497,7 @@ def freeze_land_use_trainer(trainer: Trainer, table,
         trainer.model.load_state_dict(params)
         trainer.optimizer = make_optimizer(trainer.model.parameters(),
                                            trainer.ppo_cfg)
+        replicate(trainer.mesh, trainer.model, trainer.optimizer)
         trainer.warm_start = (copied, total)
         trainer.logger.info(f'phase 2 warm start: transferred {copied}/'
                             f'{total} param tensors from phase-1 best')
@@ -420,16 +516,58 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
                  use_tensorboard: bool = False, rollout_len: int = None,
                  resume: str = None, num_devices: int = 0,
                  device='cuda', warm_start_phase2: bool = True,
-                 encoder: str = 'sgnn') -> Trainer:
+                 encoder: str = 'sgnn', timeout: Optional[float] = None):
     """Training loop: iterations x train_iteration with a checkpoint every
     save_model_interval iterations and a final one; with separate_train,
     the land-use phase, the freeze of its best plan, then as many
     iterations of the road phase (numbered iterations .. 2 x iterations -
     1). Without a successful phase-1 plan the road phase is skipped, as
-    in the JAX trainer. A phase-2 checkpoint resumes in phase 2."""
-    if num_devices not in (0, 1):
-        raise NotImplementedError(f'data-parallel training (--num_devices '
-                                  f'{num_devices}) {NOT_PORTED}')
+    in the JAX trainer. A phase-2 checkpoint resumes in phase 2.
+
+    num_devices: 0 / 1 one device; N > 1 data parallel over N ranks; -1
+    every visible card. Returns the Trainer, except where it spawns the N
+    ranks itself (no process group is initialized yet): then each rank's
+    summary (rank_summary), in rank order. Inside an initialized group of
+    N ranks (torchrun) each rank trains in its own process and returns
+    its Trainer. `timeout` (seconds) bounds a spawned run."""
+    n = visible_devices(device) if num_devices == -1 else max(num_devices, 1)
+    if n > 1 and not dist.is_initialized():
+        check_divisible(num_envs or cfg.rollout_specs.get('num_envs', 256), n)
+        return spawn(_train_rank, n, device, timeout=timeout,
+                     rendezvous_dir=cfg.cfg_dir, args=(
+                         cfg, iterations, num_envs, separate_train,
+                         eval_envs, use_tensorboard, rollout_len, resume,
+                         warm_start_phase2, encoder))
+    return _train(make_mesh(n, device), cfg, iterations, num_envs,
+                  separate_train, eval_envs, use_tensorboard, rollout_len,
+                  resume, warm_start_phase2, encoder)
+
+
+def rank_summary(trainer: Trainer) -> dict:
+    """What a spawned rank returns: its mesh, every iteration's TrainStats,
+    its parameters (on the CPU), the last collect's actions, and its
+    device's peak memory (bytes, None on the CPU)."""
+    mesh = trainer.mesh
+    peak = (torch.cuda.max_memory_allocated(trainer.device)
+            if trainer.device.type == 'cuda' else None)
+    return {'rank': mesh.rank, 'backend': mesh.backend,
+            'device': str(mesh.device),
+            'ranks_per_device': mesh.ranks_per_device,
+            'history': trainer.history,
+            'params': {k: v.detach().cpu() for k, v
+                       in trainer.model.state_dict().items()},
+            'last_actions': trainer.last_actions, 'peak_bytes': peak}
+
+
+def _train_rank(mesh: Mesh, *args) -> dict:
+    return rank_summary(_train(mesh, *args))
+
+
+def _train(mesh: Mesh, cfg: Config, iterations: int, num_envs, separate_train,
+           eval_envs, use_tensorboard, rollout_len, resume,
+           warm_start_phase2, encoder) -> Trainer:
+    """run_training's loop on this rank. Every rank reads a resume
+    checkpoint."""
     ckpt = read_checkpoint(resume) if resume else None
     resume_phase = ckpt.get('phase', 1) if ckpt else 1
     if resume_phase == 2 and not separate_train:
@@ -437,9 +575,14 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
     if separate_train:
         cfg.train()
     trainer = Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
-                      eval_envs=eval_envs, device=device,
-                      use_tensorboard=use_tensorboard,
-                      keep_boundaries=separate_train, encoder=encoder)
+                      eval_envs=eval_envs, use_tensorboard=use_tensorboard,
+                      keep_boundaries=separate_train, encoder=encoder,
+                      mesh=mesh)
+    if mesh.world_size > 1:
+        trainer.logger.info(
+            f'data parallel: {mesh.world_size} ranks, backend '
+            f'{mesh.backend}, {mesh.ranks_per_device} rank(s) per device, '
+            f'{trainer.local_envs} envs a rank')
     if ckpt:
         # a phase-2 checkpoint holds the frozen plan and phase-2 shaped
         # parameters: re-enter phase 2 before installing them
@@ -448,11 +591,14 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
             freeze_land_use_trainer(trainer, ckpt['frozen_table'])
         trainer.load_checkpoint(ckpt)
 
-    if resume_phase == 1:
-        for it in range(trainer.start_iteration, iterations):
+    def iterate(its):
+        for it in its:
             trainer.train_iteration(it)
             if (it + 1) % cfg.save_model_interval == 0:
                 trainer.save_checkpoint(it)
+
+    if resume_phase == 1:
+        iterate(range(trainer.start_iteration, iterations))
         trainer.save_checkpoint(iterations - 1, tag='phase1_final'
                                 if separate_train else 'final')
     if not separate_train:
@@ -474,11 +620,7 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
         freeze_land_use_trainer(
             trainer, table, warm_start_params=(
                 trainer.best_params if warm_start_phase2 else None))
-    for it in range(max(iterations, trainer.start_iteration),
-                    2 * iterations):
-        trainer.train_iteration(it)
-        if (it + 1) % cfg.save_model_interval == 0:
-            trainer.save_checkpoint(it)
+    iterate(range(max(iterations, trainer.start_iteration), 2 * iterations))
     trainer.save_checkpoint(2 * iterations - 1, tag='phase2_final')
     return trainer
 
@@ -490,7 +632,9 @@ def main(argv=None):
     ap.add_argument('--num_envs', type=int, default=0,
                     help='Vectorized envs (0 = cfg default).')
     ap.add_argument('--num_devices', type=int, default=0,
-                    help='0/1 = one device (more is not ported yet).')
+                    help='Data-parallel ranks: 0/1 = one device, N > 1 = '
+                    'shard the envs and all-reduce the gradients over N '
+                    'ranks, -1 = every visible card.')
     ap.add_argument('--iterations', type=int, default=10)
     ap.add_argument('--eval_envs', type=int, default=16)
     ap.add_argument('--rollout_len', type=int, default=0,

@@ -15,8 +15,10 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
+from urban_tpu_torch.models.policy import uniform
 from urban_tpu_torch.torchenv.state import FIELD_NAMES, EnvSpec, PlanState
 from urban_tpu_torch.torchenv.step import (FAILURE_BIT_NAMES,
                                            batched_road_network_reward,
@@ -190,7 +192,8 @@ def rollout(spec: EnvSpec, model, init_state: PlanState,
             num_steps: int, noise_rate: float = 1.0):
     """Collect (T, B) trajectories with auto-reset, stored on the states'
     device. A row explores (samples its action) where a uniform draw is
-    below noise_rate; otherwise it takes the argmax. Returns
+    below noise_rate; otherwise it takes the argmax. `generator` may be a
+    data-parallel rank's RowShard of the batch-wide stream. Returns
     (final_states, Trajectory)."""
     batch_obs, batch_step = make_batch_fns(spec)
     B = start_state.stage.shape[0]
@@ -205,8 +208,7 @@ def rollout(spec: EnvSpec, model, init_state: PlanState,
     for t in range(num_steps):
         state = reset_done(init_b, state)
         obs = batch_obs(state)
-        use_mean = torch.rand(B, generator=generator,
-                              device=dev) >= noise_rate
+        use_mean = uniform((B,), generator, dev) >= noise_rate
         action, log_prob, value = model.sample_action_logp_value(
             obs, generator, use_mean)
         state, reward, done, info = batch_step(state, action)
@@ -267,13 +269,20 @@ def episode_success_weights(dones: torch.Tensor,
     return flags
 
 
-def normalize_advantages(advantages: torch.Tensor,
-                         weights: torch.Tensor) -> torch.Tensor:
-    """Standardize advantages over the rows that train (weights > 0)."""
-    wsum = torch.clamp_min(weights.sum(), 1.0)
-    mu = (advantages * weights).sum() / wsum
-    var = (((advantages - mu) ** 2) * weights).sum() / wsum
-    return (advantages - mu) / torch.sqrt(var + 1e-8)
+def normalize_advantages(advantages: torch.Tensor, weights: torch.Tensor,
+                         group=None) -> torch.Tensor:
+    """Standardize advantages over the rows that train (weights > 0); with
+    a process group, over the rows of every rank (each weighted sum is
+    all-reduced before it divides)."""
+    sums = torch.stack([weights.sum(), (advantages * weights).sum()])
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+    wsum = torch.clamp_min(sums[0], 1.0)
+    mu = sums[1] / wsum
+    var = (((advantages - mu) ** 2) * weights).sum()
+    if group is not None:
+        dist.all_reduce(var, group=group)
+    return (advantages - mu) / torch.sqrt(var / wsum + 1e-8)
 
 
 def batched_gae(rewards: torch.Tensor, dones: torch.Tensor,
