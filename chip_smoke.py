@@ -17,7 +17,7 @@ then runs one full HLG PPO train_iteration (256 envs x 50 steps, 4 epochs
 of minibatch 256) and a 16-env greedy evaluation. Then the road and
 concept rewards on the card against the CPU, a road-stage lockstep of the
 grid scenario on the card against the CPU, and one full grid PPO
-train_iteration with land use and roads (192 envs x 120 steps, 4 epochs of
+train_iteration with land use and roads (192 envs x 110 steps, 4 epochs of
 minibatch 256), whose road head must learn. The MLP encoder (no message
 passing, no kernel) runs on the card against the CPU, forward and one PPO
 loss gradient. Then the grid's two-phase run_training (land use, the
@@ -34,13 +34,30 @@ trainer data parallel (run_training with 2 ranks sharing the card
 through gloo) against one device: the same sampled actions, loss stats
 and bitwise-equal ranks; the graft entry points (graft_entry) on the
 card; and the GA path: the batched population fitness card vs CPU and
-the train_ga CLI with its GeoJSON export. The launch counts show that
-each path went through its kernels.
+the train_ga CLI with its GeoJSON export. Then the fidelity tools: the
+failure replay of the bench's rollout through the host oracle
+(tools/replay_failures.py run_corpus on the card, one failure replayed
+again with the env on the CPU), the host-oracle lockstep replay
+(tools/divergence.py) with the env on the card against the CPU, and the
+plan-scoring demo on the two-phase run's phase-2 best checkpoint and a
+published plan. The launch counts show that each path went through its
+kernels.
+The tail, phases whose loops are host-bound while the card idles (the
+road and concept reward checks, the GA phase, the failure replay and
+both sides of the divergence replay), runs in child processes, each on
+a core of its own, beside the graft entry points; the divergence
+replay's CPU side starts after the HLG rollout.
+
+    python3 chip_smoke.py --tail sequential|concurrent
+
+builds the kernels and runs only that tail, in this process one phase
+after another or in the child processes: what the children save.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 12-17 minutes on an H100, as fast as the host is.
+fails. About 13-15 minutes on an H100, as fast as the host is.
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -72,8 +89,10 @@ TOL_ROAD = 1e-6          # road reward, card vs CPU (f32 sums, other order)
 # 25 every episode that ended was a failure (60 of 60 on the card), which
 # weights every row zero and leaves the update nothing to learn
 ROLLOUT_STEPS, TRAIN_ENVS, TRAIN_LEN, EVAL_ENVS = 30, 256, 35, 16
-# the grid trainer's own batch and window (urban_tpu/cfg grid.yaml)
-GRID_ENVS, GRID_LEN = 192, 120
+# the grid trainer's own batch (urban_tpu/cfg grid.yaml); its window cut
+# from 120 to 110 steps to pay for the fidelity phases: a grid episode
+# (land use, then roads) takes 96-111 steps, and most end within 110
+GRID_ENVS, GRID_LEN = 192, 110
 ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
 # the grid's two-phase run: cfg.train() / cfg.finetune() halve the episode
 # cap to 60 steps, which holds a land-use episode (about 48 steps) and a
@@ -99,6 +118,12 @@ DP_TIMEOUT = 900.0       # seconds, each spawned run
 # has no plan)
 GA_CMP_GENES, GA_GENES, GA_STEPS, TOL_GA = 4, 8, 45, 1e-5
 GA_SEEDS = (0, 1, 2)
+# the fidelity tools: two hlg seeds of the divergence sweep, card vs CPU
+# (the CPU side in a child process from the start); the bench's failure
+# replay at a quarter of its batch, a few failures and successes
+DIVERGENCE_SEEDS = (100, 101)
+REPLAY_ENVS, REPLAY_STEPS, REPLAY_FAILURES, REPLAY_SUCCESSES = 64, 30, 3, 2
+REPLAY_BUDGET_S = 60.0
 
 
 def phase(name, t0, **kv):
@@ -172,9 +197,11 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                     raise AssertionError(f'{shape}: library forward {lib_err}')
                 def kernel():
                     return segment_ops.segment_mean_counts(h, edges, mask, n)
+                device_ms, traces = kb.device_trace(kernel,
+                                                    kb.FORWARD_KERNEL)
                 times = fwd[key] = {
                     'ms': kb.cuda_time_ms(kernel),
-                    'device_ms': kb.device_time_ms(kernel),
+                    'device_ms': device_ms, 'device_traces': traces,
                     'plain_ms': kb.cuda_time_ms(
                         lambda: segment_ops.segment_mean_counts_ref(
                             h, edges, mask, n)),
@@ -218,9 +245,11 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                 def kernel():
                     return segment_ops.segment_mean_backward(g, counts, edges,
                                                              mask)
+                device_ms, traces = kb.device_trace(kernel,
+                                                    kb.BACKWARD_KERNEL)
                 times = bwd[key] = {
                     'ms': kb.cuda_time_ms(kernel),
-                    'device_ms': kb.device_time_ms(kernel),
+                    'device_ms': device_ms, 'device_traces': traces,
                     'plain_ms': kb.cuda_time_ms(
                         lambda: segment_ops.segment_mean_backward_ref(
                             g, counts, edges, mask)),
@@ -409,7 +438,56 @@ def road_lockstep(spec, init_np, dev):
             'road_rewards': final.tolist()}
 
 
-def two_phase_grid(dev, layers):
+def road_checks(dev):
+    """Phases 8 and 10, [name, seconds, record] each: the road-network
+    reward card vs CPU on the named networks (serpentine corridor,
+    diagonal roads, ...) and seeded random ones, ROAD_BATCH in all; the
+    grid road stage's lockstep, card vs CPU."""
+    from urban_tpu_torch import bench
+    from urban_tpu_torch.torchenv import road_fixtures
+    from urban_tpu_torch.torchenv import state as tstate
+    out = []
+    t0 = time.time()
+    _, spec_g, init_g = bench.setup('grid', {}, 'cpu')
+    init_np = tstate.plan_state_to_numpy(init_g)
+    named = list(road_fixtures.reward_states(init_np).values())
+    rand = road_fixtures.random_road_states(init_np, seed=11,
+                                            batch=ROAD_BATCH - len(named))
+    road_cpu = tstate.plan_state_from_numpy(
+        {k: np.concatenate([np.stack([x[k] for x in named]), rand[k]])
+         for k in init_np}, 'cpu')
+    road, _ = compare_road_reward(spec_g, road_cpu, dev,
+                                  'named and random networks')
+    out.append(['road_reward_card_vs_cpu', time.time() - t0, road])
+    t0 = time.time()
+    steps = road_lockstep(spec_g, init_np, dev)
+    out.append(['road_lockstep_gpu_vs_cpu', time.time() - t0,
+                dict(envs=ROAD_LOCKSTEP_ENVS, **steps)])
+    return out
+
+
+def concept_checks(dev):
+    """Phase 9, [[name, seconds, record]]: the concept reward card vs CPU
+    (hlg_concept, dhm_concept)."""
+    from urban_tpu_torch import bench
+    t0 = time.time()
+    concept = {}
+    for name in ('hlg_concept', 'dhm_concept'):
+        _, spec_x, init_x = bench.setup(name, {}, 'cpu')
+        concept[name] = compare_concept_reward(spec_x, init_x, dev)
+    return [['concept_reward_card_vs_cpu', time.time() - t0,
+             dict(batch=CONCEPT_BATCH, **concept)]]
+
+
+def replay_phase(dev):
+    """replay_failures_hlg at the SGNN's depth, for a child process."""
+    from urban_tpu_torch.bench import load_config
+    from urban_tpu_torch.ops import segment_ops
+    layers = load_config('hlg').state_encoder_specs['num_gcn_layers']
+    return replay_failures_hlg(dev, layers, segment_ops)
+
+
+def two_phase_grid(dev, layers, keep_dir):
     """The grid's two-phase run_training on the card: TWO_PHASE_ENVS envs
     x TWO_PHASE_LEN steps, one iteration of land use (skip_road with
     keep_boundaries), the freeze of the best greedy plan with a warm start,
@@ -420,7 +498,9 @@ def two_phase_grid(dev, layers):
     whose gradient is exactly zero in a road-only phase (as the road
     head's is on HLG); the road rewards lie in (0, 1]. Then run_training
     resumes the phase-2 checkpoint, which must rebuild the same spec and
-    the same parameters. Returns the phase's record."""
+    the same parameters. The phase-2 best checkpoint is copied into
+    keep_dir (for demo_score_plan). Returns the phase's record."""
+    import shutil
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.rl import trainer as trainer_mod
@@ -541,6 +621,10 @@ def two_phase_grid(dev, layers):
                 or not 0 < eval_2 <= 1:
             raise AssertionError(f'phase-2 road rewards {road.tolist()}, '
                                  f'eval {eval_2}')
+        best_checkpoint = shutil.copy(
+            os.path.join(trainer.cfg.model_dir, 'best.pt'),
+            os.path.join(keep_dir, 'phase2_best.pt'))
+        best_reward = trainer.best_reward
         spec2 = trainer.spec
         init2 = trainer.init_state.map(lambda x: x.cpu())
         params = {k: v.clone() for k, v in trainer.model.state_dict().items()}
@@ -565,7 +649,8 @@ def two_phase_grid(dev, layers):
         resume_seconds = time.time() - t
     rec.update(run_seconds=run_seconds, resume_seconds=resume_seconds,
                counted=counted, stats=stats, spec2=spec2, init2=init2,
-               road_rewards=road, moved=moved)
+               road_rewards=road, moved=moved,
+               best_checkpoint=best_checkpoint, best_reward=best_reward)
     return rec
 
 
@@ -957,13 +1042,11 @@ def dp_train_hlg(dev, layers):
         'dp_seconds': dp_seconds, 'control_seconds': one_seconds}
 
 
-def ga_population_hlg(dev):
-    """make_ga_population_fitness on HLG: GA_CMP_GENES greedy genes for
-    GA_STEPS steps on the card and on the CPU, within TOL_GA; then the
-    train_ga CLI for one generation of GA_GENES with --tpu_env on the
-    card, its --export_geojson read back. The GA runs no kernel."""
-    from urban_tpu_torch import bench, train_ga
-    from urban_tpu_torch.host.io.geojson import load_geojson
+def ga_fitness(dev):
+    """The GA phase's first half: make_ga_population_fitness on HLG,
+    GA_CMP_GENES greedy genes for GA_STEPS steps on the card and on the
+    CPU, within TOL_GA. The GA runs no kernel."""
+    from urban_tpu_torch import bench
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.rl.ga import make_ga_population_fitness
     _, spec, init = bench.setup('hlg', {}, 'cpu')
@@ -981,6 +1064,22 @@ def ga_population_hlg(dev):
     err = float(np.abs(card - cpu).max())
     if not (err <= TOL_GA and (card > 0).any()):
         raise AssertionError(f'GA fitness card {card} cpu {cpu}')
+    if any(segment_ops.launches.values()):
+        raise AssertionError(f'the GA launched {segment_ops.launches}')
+    return {'genes': GA_CMP_GENES, 'steps': GA_STEPS, 'fitness_card':
+            card.tolist(), 'max_abs_err_vs_cpu': err, 'tolerance': TOL_GA,
+            'fitness_seconds': secs}
+
+
+def ga_train(dev):
+    """The GA phase's second half: the train_ga CLI for one generation of
+    GA_GENES with --tpu_env on the card, at the first of GA_SEEDS whose
+    best gene's greedy host episode succeeds, its --export_geojson read
+    back. No kernel."""
+    from urban_tpu_torch import train_ga
+    from urban_tpu_torch.host.io.geojson import load_geojson
+    from urban_tpu_torch.ops import segment_ops
+    segment_ops.reset_launches()
     attempts = []
     with tempfile.TemporaryDirectory() as run_dir:
         path = os.path.join(run_dir, 'plan.geojson')
@@ -1004,26 +1103,328 @@ def ga_population_hlg(dev):
                 and np.array_equal(table.types, want.types)):
             raise AssertionError('the exported GeoJSON plan reads back '
                                  'otherwise')
-    if segment_ops.launches != {'segment_mean': 0,
-                                'segment_mean_backward': 0}:
-        raise AssertionError(f'the GA launched {segment_ops.launches}')
-    return {'genes': GA_CMP_GENES, 'steps': GA_STEPS, 'fitness_card':
-            card.tolist(), 'max_abs_err_vs_cpu': err, 'tolerance': TOL_GA,
-            'fitness_seconds': secs, 'train_ga': attempts,
-            'exported_features': len(table), 'kernel_launches': 0}
+    if any(segment_ops.launches.values()):
+        raise AssertionError(f'train_ga launched {segment_ops.launches}')
+    return {'train_ga': attempts, 'exported_features': len(table),
+            'kernel_launches': 0}
 
 
-def main():
+def divergence_side(dev):
+    """One side of divergence_card_vs_cpu: tools/divergence.py's
+    replay_episode on hlg at DIVERGENCE_SEEDS with the slot env on `dev`
+    (no policy runs: no launch)."""
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.tools import divergence
+    segment_ops.reset_launches()
+    results, seconds = [], []
+    for seed in DIVERGENCE_SEEDS:
+        cfg = divergence.make_config('hlg')
+        t = time.time()
+        results.append(divergence.replay_episode(
+            cfg, seed, max_steps=cfg.max_sequence_length + 20, device=dev))
+        seconds.append(time.time() - t)
+    return {'results': results, 'seconds': seconds,
+            'launches': dict(segment_ops.launches)}
+
+
+# the tail: phases whose times are not on record, each a host-bound loop
+# that leaves the card idle most of the time (two processes sharing it
+# each run as fast as one alone: PERF.md §6), so they run in child
+# processes, each on a core of its own, beside the graft entry points:
+# (phase function of this script, device)
+TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
+        ('concept_checks', 'cuda'), ('ga_fitness', 'cuda'),
+        ('ga_train', 'cuda'), ('divergence_side', 'cuda'),
+        ('divergence_side', 'cpu'))
+# a TAIL phase in a child process; prints run_phase's result as its last
+# line, one JSON object
+PHASE_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke
+from urban_tpu_torch import bench
+torch.set_num_threads(chip_smoke.CHILD_THREADS)
+bench.set_precision_flags()
+print(json.dumps(chip_smoke.run_phase(*sys.argv[1:])))
+"""
+# intra-op threads of a child: seven of them share the host's cores with
+# the graft entry points' ranks
+CHILD_THREADS, CHILD_TIMEOUT = 2, 900.0
+
+
+def run_phase(name, device):
+    """A TAIL phase in this process: (its own seconds, its result)."""
+    t = time.time()
+    out = globals()[name](torch.device(device))
+    return time.time() - t, out
+
+
+def start_child(name, device):
+    """A child process running the TAIL phase `name` on `device` from the
+    checkout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, '-c', PHASE_CHILD, name,
+                             device], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def child_result(proc, what):
+    """run_phase's result in a start_child child, once it has ended; its
+    failure fails the phase."""
+    out, err = proc.communicate(timeout=CHILD_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f'{what} failed: {err[-3000:]}')
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def same_divergence_metrics(card, cpu):
+    """The names of the keys where two replay_episode dicts differ: the
+    slot env's reward (and the delta) beyond STATE_RTOL / STATE_ATOL,
+    anything else (ints, bools, the host's reward) at all."""
+    bad = sorted(set(card) ^ set(cpu))
+    for k in set(card) & set(cpu):
+        a, b = card[k], cpu[k]
+        if k in ('reward_jax', 'reward_delta') and None not in (a, b):
+            if not abs(a - b) <= STATE_ATOL + STATE_RTOL * abs(b):
+                bad.append(k)
+        elif a != b:
+            bad.append(k)
+    return bad
+
+
+def divergence_card_vs_cpu(card_side, cpu_side):
+    """tools/divergence.py's replay_episode with the slot env on the card
+    against the same replay on the CPU for DIVERGENCE_SEEDS on hlg (each
+    side divergence_side's result): equal dicts. The replay runs no
+    policy: neither side may count a kernel launch."""
+    got = {'cuda': card_side, 'cpu': cpu_side}
+    card, cpu = card_side['results'], cpu_side['results']
+    if len(card) != len(DIVERGENCE_SEEDS) or len(cpu) != len(card):
+        raise AssertionError(f'{len(card)} card and {len(cpu)} CPU replays')
+    for a, b in zip(card, cpu):
+        bad = same_divergence_metrics(a, b)
+        if bad or not a['completed_both']:
+            raise AssertionError(f'seed {a["seed"]}: card {a} cpu {b}, '
+                                 f'differ in {bad}')
+    launches = card_side['launches']
+    if any(launches.values()) or any(cpu_side['launches'].values()):
+        raise AssertionError(f'the divergence replay launched {launches}')
+    steps = sum(r['steps'] for r in card)
+    return {'seeds': list(DIVERGENCE_SEEDS), 'card': card,
+            'equal_to_cpu': True, 'tolerance': [STATE_RTOL, STATE_ATOL],
+            'seed_seconds': {d: g['seconds'] for d, g in got.items()},
+            'seconds_per_step': {d: sum(g['seconds']) / steps
+                                 for d, g in got.items()},
+            'kernel_launches': launches}
+
+
+def replay_failures_hlg(dev, layers, segment_ops):
+    """tools/replay_failures.py's run_corpus on the card at the bench caps
+    (REPLAY_ENVS x REPLAY_STEPS, REPLAY_FAILURES failures and
+    REPLAY_SUCCESSES successes within REPLAY_BUDGET_S host seconds): the
+    corpus's rollout launches REPLAY_STEPS x layers forward segment means
+    and the replay none; at least one failure and one success replayed;
+    then the first replayed failure again with the env on the CPU, which
+    must give the same outcome dict. Times each host (CityEnv.step) and
+    card (env_step, synchronized) step of the replay, and records beside
+    the outcomes each replayed episode's slot actions and the failure
+    bits of the slot env's first failing step (none for a success)."""
+    from urban_tpu_torch import bench
+    from urban_tpu_torch.host.envs.city import CityEnv
+    from urban_tpu_torch.torchenv import step as ts
+    from urban_tpu_torch.tools import divergence
+    from urban_tpu_torch.tools import replay_failures as rf
+    orig = {'collect': rf.collect_trajectories, 'replay': rf.replay_one,
+            'host': CityEnv.step, 'port': ts.env_step}
+    kept, spent, bits = {}, {'host': [], 'port': []}, []
+
+    def collect(*a, **k):
+        kept['arrays'] = orig['collect'](*a, **k)
+        return kept['arrays']
+
+    def replay(*a, **k):
+        bits.append(None)
+        return orig['replay'](*a, **k)
+
+    def timed(name):
+        def step(*a, **k):
+            t = time.time()
+            out = orig[name](*a, **k)
+            if name == 'port':
+                torch.cuda.synchronize()
+                code = int(out[3]['failure_code'])
+                if code and bits[-1] is None:
+                    bits[-1] = [n for bit, n in ts.FAILURE_BIT_NAMES.items()
+                                if code & bit]
+            spent[name].append(time.time() - t)
+            return out
+        return step
+    rf.collect_trajectories, rf.replay_one = collect, replay
+    CityEnv.step, ts.env_step = timed('host'), timed('port')
+    segment_ops.reset_launches()
+    t = time.time()
+    try:
+        metrics, fail_out, succ_out = rf.run_corpus(
+            'hlg', B=REPLAY_ENVS, T=REPLAY_STEPS, budget_s=REPLAY_BUDGET_S,
+            max_failures=REPLAY_FAILURES, n_success=REPLAY_SUCCESSES,
+            verbose=False, device=dev)
+    finally:
+        rf.collect_trajectories, rf.replay_one = orig['collect'], \
+            orig['replay']
+        CityEnv.step, ts.env_step = orig['host'], orig['port']
+    seconds = time.time() - t
+    launches = dict(segment_ops.launches)
+    expect = {'segment_mean': REPLAY_STEPS * layers,
+              'segment_mean_backward': 0}
+    if launches != expect:
+        raise AssertionError(f'replay launches {launches} != {expect}')
+    if not (fail_out and succ_out):
+        raise AssertionError(f'replayed {len(fail_out)} failures and '
+                             f'{len(succ_out)} successes: {metrics}')
+    acts = kept['arrays'][0]
+    replayed = fail_out + succ_out
+    episodes = [{'env': r['env'], 't0': r['t0'], 't': r['t'],
+                 'slot_actions': acts[r['t0']:r['t'] + 1, r['env']].tolist(),
+                 'slot_failure_bits': b} for r, b in zip(replayed, bits)]
+    ref = dict(fail_out[0])
+    b, t_end, t0 = ref.pop('env'), ref.pop('t'), ref.pop('t0')
+    _, spec, init = bench.setup('hlg', device='cpu')
+    t = time.time()
+    again = rf.replay_one(divergence.make_config('hlg'), spec, init,
+                          acts[t0:t_end + 1, b], fail_step=t_end - t0,
+                          device='cpu')
+    cpu_seconds = time.time() - t
+    if again != ref:
+        raise AssertionError(f'failure replay card {ref} cpu {again}')
+    return {'envs': REPLAY_ENVS, 'steps': REPLAY_STEPS,
+            'budget_s': REPLAY_BUDGET_S, 'metrics': metrics,
+            'failure_outcomes': fail_out, 'success_outcomes': succ_out,
+            'replayed_episodes': episodes,
+            'cpu_replay_same': True, 'cpu_replay_seconds': cpu_seconds,
+            'cpu_replay_steps': int(t_end - t0 + 1),
+            'replayed_steps': sum(r['steps'] for r in replayed),
+            'seconds_per_step': {k: sum(v) / max(len(v), 1)
+                                 for k, v in spent.items()},
+            'steps_timed': {k: len(v) for k, v in spent.items()},
+            'run_corpus_seconds': seconds, 'kernel_launches': launches}
+
+
+def demo_score_plan(checkpoint, trainer_best_reward):
+    """The demo (urban_tpu_torch.demo) on the grid two-phase run's phase-2
+    best checkpoint and on the published grid plan: non-empty tables,
+    finite rewards. The host score of the checkpoint's plan is printed
+    beside the trainer's batched-env eval reward (a fidelity figure, not
+    a gate)."""
+    from urban_tpu_torch import demo
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, path in (('phase2_best_checkpoint', checkpoint),
+                       ('grid_rl_tpu_geojson', os.path.join(
+                           root, 'results', 'grid_rl_tpu.geojson'))):
+        t = time.time()
+        table = demo.load_plan_table(path)
+        reward, info = demo.score_plan('grid', table, verbose=False)
+        if not (len(table) > 0 and np.isfinite(reward)):
+            raise AssertionError(f'demo on {name}: {len(table)} features, '
+                                 f'reward {reward}')
+        out[name] = {'features': len(table), 'host_reward': reward,
+                     'channels': {k: v for k, v in info.items()
+                                  if not isinstance(v, dict)},
+                     'seconds': time.time() - t}
+    out['phase2_best_checkpoint']['trainer_eval_reward'] = \
+        trainer_best_reward
+    return out
+
+
+def tail(dev, children, concurrent=True):
+    """The graft entry points (phase 17) and the TAIL phases (8-10, the
+    GA, the failure replay, the divergence replay card vs CPU): with
+    `concurrent`, each TAIL phase in a child process (those not yet in
+    `children` started here) beside the graft entry points, else each in
+    this process, one after another. Prints each phase with its own
+    seconds, then the tail's wall seconds; returns the failure replay's
+    record."""
+    from urban_tpu_torch import graft_entry
+    t_tail = time.time()
+    if concurrent:
+        for name, device in TAIL:
+            if f'{name}:{device}' not in children:
+                children[f'{name}:{device}'] = start_child(name, device)
+
+    # ---- 17. the graft entry points -------------------------------------
+    t0 = time.time()
+    fn, args = graft_entry.entry('cuda')
+    reward, done, value = fn(*args)
+    torch.cuda.synchronize()
+    shapes = [list(x.shape) for x in (reward, done, value)]
+    if shapes != [[8], [8], [8, 1]] or not bool(
+            torch.isfinite(reward).all() and torch.isfinite(value).all()):
+        raise AssertionError(f'entry step {shapes}')
+    dry = graft_entry.dryrun_multichip(DP_RANKS, 'cuda', timeout=DP_TIMEOUT)
+    phase('graft_dryrun', t0, entry_shapes=shapes, ranks=DP_RANKS, **dry)
+
+    # ---- 18. the TAIL phases, each with its own seconds ------------------
+    got = {f'{name}:{device}': (
+        child_result(children[f'{name}:{device}'], f'{name} on {device}')
+        if concurrent else run_phase(name, device)) for name, device in TAIL}
+    for key in ('road_checks:cuda', 'concept_checks:cuda'):
+        for ph, secs, rec in got[key][1]:
+            phase(ph, time.time() - secs, **rec)
+    secs, replay = got['replay_phase:cuda']
+    phase('replay_failures_hlg', time.time() - secs, **replay)
+    (s_fit, fit), (s_train, train) = got['ga_fitness:cuda'], \
+        got['ga_train:cuda']
+    phase('ga_population_hlg', time.time() - s_fit - s_train, **fit, **train,
+          parts_seconds={'fitness': s_fit, 'train_ga': s_train})
+    (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
+        got['divergence_side:cpu']
+    phase('divergence_card_vs_cpu', time.time() - s_card - s_cpu,
+          **divergence_card_vs_cpu(card, cpu),
+          sides_seconds={'cuda': s_card, 'cpu': s_cpu})
+    phase('tail', t_tail, concurrent=concurrent,
+          phase_seconds={key: got[key][0] for key in got})
+    return replay
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--tail', choices=('sequential', 'concurrent'),
+                    help='build the kernels and run only the tail (the '
+                    'graft entry points and the TAIL phases), one way or '
+                    'the other: what the child processes save')
+    args = ap.parse_args(argv)
     t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device; the port has no CPU '
                          'fallback for this check')
+    children = {}
+    with tempfile.TemporaryDirectory() as keep_dir:
+        try:
+            if args.tail:
+                from urban_tpu_torch import bench
+                from urban_tpu_torch.ops import segment_ops
+                bench.set_precision_flags()
+                segment_ops.build_libraries()
+                tail(torch.device('cuda', 0), children,
+                     concurrent=args.tail == 'concurrent')
+            else:
+                smoke(t_start, children, keep_dir)
+        finally:
+            for proc in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
+
+def smoke(t_start, children, keep_dir):
+    """Every phase, in order (the module docstring). children collects
+    the child processes of the TAIL phases (the CPU side of the
+    divergence replay starts after the HLG rollout, the others at the
+    tail), keep_dir a directory that outlives the phases."""
     from urban_tpu_torch import bench
     from urban_tpu_torch import kernel_bench as kb
     from urban_tpu_torch.models.policy import MASK_PAD
     from urban_tpu_torch.ops import segment_ops
-    from urban_tpu_torch.torchenv import road_fixtures
     from urban_tpu_torch.torchenv import rollout as rollout_mod
     from urban_tpu_torch.torchenv import state as tstate
     from urban_tpu_torch.torchenv.rollout import (broadcast_state,
@@ -1186,6 +1587,9 @@ def main():
     if not stats['overflow_gate_1pct_pass']:
         raise AssertionError(f'capacity gate: {stats}')
     phase('rollout', t0, kernel_launches=launches, **stats)
+    # the divergence replay's CPU side (one core, no card) from here on,
+    # after the rollout whose env steps/s is the host's yardstick
+    children['divergence_side:cpu'] = start_child('divergence_side', 'cpu')
 
     # ---- 6. port GPU vs port CPU lockstep -------------------------------
     t0 = time.time()
@@ -1245,34 +1649,8 @@ def main():
               mean_successful_reward=eval_r, channels=chans,
               best_reward=trainer.best_reward, kernel_launches=eval_launches)
 
-    # ---- 8. the road-network reward, card vs CPU ------------------------
-    t0 = time.time()
-    init_np = tstate.plan_state_to_numpy(init_g_cpu)
-    # the named networks (serpentine corridor, diagonal roads, ...) and
-    # seeded random ones, ROAD_BATCH in all
-    named = list(road_fixtures.reward_states(init_np).values())
-    rand = road_fixtures.random_road_states(init_np, seed=11,
-                                            batch=ROAD_BATCH - len(named))
-    road_cpu = tstate.plan_state_from_numpy(
-        {k: np.concatenate([np.stack([x[k] for x in named]), rand[k]])
-         for k in init_np}, 'cpu')
-    road, _ = compare_road_reward(spec_g, road_cpu, dev,
-                                  'named and random networks')
-    phase('road_reward_card_vs_cpu', t0, **road)
-
-    # ---- 9. the concept reward, card vs CPU -----------------------------
-    t0 = time.time()
-    concept = {}
-    for name in ('hlg_concept', 'dhm_concept'):
-        _, spec_x, init_x = bench.setup(name, {}, 'cpu')
-        concept[name] = compare_concept_reward(spec_x, init_x, dev)
-    phase('concept_reward_card_vs_cpu', t0, batch=CONCEPT_BATCH, **concept)
-
-    # ---- 10. the grid road stage, GPU vs CPU lockstep -------------------
-    t0 = time.time()
-    road_steps = road_lockstep(spec_g, init_np, dev)
-    phase('road_lockstep_gpu_vs_cpu', t0, envs=ROAD_LOCKSTEP_ENVS,
-          **road_steps)
+    # ---- 8-10: the road and concept rewards card vs CPU and the grid
+    # road stage's lockstep run in the tail (TAIL, phases 17-19)
 
     # ---- 11. the grid slice: one PPO train_iteration, land use + roads --
     t0 = time.time()
@@ -1347,7 +1725,7 @@ def main():
     del trainer
     t0 = time.time()
     held = torch.cuda.memory_allocated(dev)
-    two = two_phase_grid(dev, layers)
+    two = two_phase_grid(dev, layers, keep_dir)
     se = cfg_g.state_encoder_specs
     two_launches = {k: sum(c['launches'][k] for c in two['counted'])
                     for k in segment_ops.launches}
@@ -1393,6 +1771,11 @@ def main():
     phase('phase2_graph_kernels', t0, shape=list(p2),
           in_kernel_bench_shapes=listed,
           backward_plan=segment_ops.backward_plan(p2[2], p2[3])._asdict())
+
+    # ---- 13b. the demo on the phase-2 best plan and a published plan ----
+    t0 = time.time()
+    phase('demo_score_plan', t0, **demo_score_plan(two['best_checkpoint'],
+                                                   two['best_reward']))
 
     # ---- 14. the host agent: train (two phases) -> eval -----------------
     t0 = time.time()
@@ -1451,22 +1834,8 @@ def main():
     phase('dp_rank_kernels', t0, shape=list(kb.DP_RANK_UPDATE),
           batch=kb.BATCHES['dp_rank_update'][0])
 
-    # ---- 17. the graft entry points -------------------------------------
-    t0 = time.time()
-    from urban_tpu_torch import graft_entry
-    fn, args = graft_entry.entry('cuda')
-    reward, done, value = fn(*args)
-    torch.cuda.synchronize()
-    shapes = [list(x.shape) for x in (reward, done, value)]
-    if shapes != [[8], [8], [8, 1]] or not bool(
-            torch.isfinite(reward).all() and torch.isfinite(value).all()):
-        raise AssertionError(f'entry step {shapes}')
-    dry = graft_entry.dryrun_multichip(DP_RANKS, 'cuda', timeout=DP_TIMEOUT)
-    phase('graft_dryrun', t0, entry_shapes=shapes, ranks=DP_RANKS, **dry)
-
-    # ---- 18. the GA: population fitness, train_ga ---------------------------
-    t0 = time.time()
-    phase('ga_population_hlg', t0, **ga_population_hlg(dev))
+    # ---- 17-19: the graft entry points and the TAIL phases -------------
+    replay = tail(dev, children)
 
     phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
         'env_steps_per_sec'])
@@ -1479,7 +1848,8 @@ def main():
          launches['segment_mean'] + train_launches['segment_mean']
          + eval_launches['segment_mean'] + grid_launches['segment_mean']
          + two_launches['segment_mean'] + host_launches['segment_mean']
-         + dp['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
+         + dp['kernel_launches']['segment_mean']
+         + replay['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',

@@ -69,7 +69,8 @@ def test_host_copy_matches_original(path):
 
 def test_port_imports_nothing_of_urban_tpu_or_jax():
     """Every module of the port, imported in a fresh interpreter, leaves no
-    module of urban_tpu or jax behind."""
+    module of urban_tpu or jax behind, nor the repo's top-level tools,
+    tests or demo modules."""
     mods = sorted(
         'urban_tpu_torch.' + os.path.relpath(os.path.join(d, f), os.path.join(
             ROOT, 'urban_tpu_torch'))[:-3].replace(os.sep, '.')
@@ -77,7 +78,8 @@ def test_port_imports_nothing_of_urban_tpu_or_jax():
         for f in files if f.endswith('.py') and f != '__init__.py')
     code = ('import sys\n' + ''.join(f'import {m}\n' for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('urban_tpu', 'jax', 'jaxlib', 'flax', 'optax'))\n"
+            "('urban_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'tools', "
+            "'tests', 'demo'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

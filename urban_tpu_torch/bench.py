@@ -10,7 +10,13 @@ trainer's capacities). --cfg names the scenario (hlg, grid, dhm, ...).
         --rollout_len 120
 
 prints one JSON line of the statistics. A rate measured on a CPU says
-nothing about the card; the result names the device it ran on.
+nothing about the card; the result names the device it ran on. After the
+rollout (not with --train or --profile) the failing episodes of the same
+corpus, and a sample of its successes, are replayed through the host
+oracle (tools/replay_failures.py; --skip_replay leaves that out, and
+--replay_budget_s bounds it): the result gains failure_replay,
+failure_host_confirmed_pct and host_vs_jit_failure_ratio, as root
+bench.py's detail block does. An error in the replay fails the run.
 """
 from __future__ import annotations
 
@@ -144,6 +150,24 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
         'overflow_failures': overflow,
         'overflow_gate_1pct_pass': overflow <= 0.01 * max(eps, 1),
     }
+
+
+def run_failure_replay(num_envs: int = 256, num_steps: int = 30,
+                       device='cuda', seed: int = 0, name: str = 'hlg',
+                       budget_s: float = 300.0, n_success: int = 12) -> dict:
+    """The replay keys of root bench.py's detail block for the corpus of
+    run_rollout_bench(num_envs, num_steps, device, seed, name): every
+    failing episode and n_success successes replayed through the host
+    oracle, within budget_s seconds of host time (the same budget and
+    sample as root bench.py)."""
+    from urban_tpu_torch.tools.replay_failures import run_corpus
+    metrics, _, _ = run_corpus(name, B=num_envs, T=num_steps, seed=seed,
+                               budget_s=budget_s, n_success=n_success,
+                               verbose=False, device=device)
+    return {'failure_host_confirmed_pct':
+            metrics['failure_host_confirmed_pct'],
+            'host_vs_jit_failure_ratio': metrics['host_vs_jit_failure_ratio'],
+            'failure_replay': metrics}
 
 
 def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
@@ -307,6 +331,12 @@ def main() -> None:
     ap.add_argument('--rollout_len', type=int, default=50)
     ap.add_argument('--warmup', type=int, default=1,
                     help='--profile: steps before the profiled ones')
+    ap.add_argument('--replay_budget_s', type=float, default=float(
+        os.environ.get('BENCH_REPLAY_BUDGET_S', 300)),
+                    help='host seconds for the failure replay (default: '
+                    '$BENCH_REPLAY_BUDGET_S or 300)')
+    ap.add_argument('--skip_replay', action='store_true',
+                    help='no failure replay after the rollout')
     a = ap.parse_args()
     if a.train:
         out = run_train_bench(a.num_envs, a.rollout_len, a.device, a.seed,
@@ -317,6 +347,9 @@ def main() -> None:
     else:
         out = run_rollout_bench(a.num_envs, a.num_steps, a.device, a.seed,
                                 a.cfg)
+        if not a.skip_replay:
+            out.update(run_failure_replay(a.num_envs, a.num_steps, a.device,
+                                          a.seed, a.cfg, a.replay_budget_s))
     print(json.dumps(out))
 
 

@@ -17,7 +17,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
+import time
 from typing import Callable, Tuple
 
 import numpy as np
@@ -73,19 +75,102 @@ def cuda_time_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def device_time_ms(fn, reps=20):
-    """Device time per call of fn(): the summed durations of the kernels
-    its reps calls ran, from a torch.profiler trace (no host time)."""
+# the __global__ functions the wrappers launch, once a call each
+# (csrc/segment_mean.cu, csrc/segment_mean_backward.cu)
+FORWARD_KERNEL, BACKWARD_KERNEL = ('segment_mean_kernel',
+                                   'segment_mean_backward_kernel')
+
+
+# the head of a profiler trace: the trace drops the first K device
+# events of its window, K set by what the process ran before (0-1 in a
+# fresh process, 6-7 after a data-parallel run, 62 or more late in
+# chip_smoke.py) and not by time (a host pause of 20-50 ms before or
+# after the window's first launch changes nothing: PERF.md §6), so
+# LEAD_MARKERS marker launches come before the timed calls
+LEAD_MARKERS = 256
+
+
+def one_trace(fn, kernel, reps=20, lead=LEAD_MARKERS, settle_s=0.0):
+    """One torch.profiler trace of reps calls of fn(), each of which
+    launches the CUDA kernel named `kernel` once: first a marker kernel
+    (an add on a one-element tensor), settle_s seconds of host pause,
+    `lead` more markers, the calls, one marker more. Returns
+    {'kernel_events': the events of `kernel` the trace holds,
+    'device_ms': their summed durations over reps, 'lead_markers': the
+    markers it holds before the first of them, 'trail_marker': whether
+    it holds the one after the last}."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    marker = torch.zeros(1, device='cuda')
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(settle_s)
+        for _ in range(lead):
+            marker.add_(1)
         for _ in range(reps):
             fn()
+        marker.add_(1)
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us * 1e-3 / reps
+    name = re.compile(rf'\b{kernel}\b')
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = sorted(e.time_range.start for e in events if name.search(e.name))
+    marks = [e.time_range.start for e in events if not name.search(e.name)]
+    return {'kernel_events': len(ours),
+            'device_ms': sum(e.time_range.elapsed_us() for e in events
+                             if name.search(e.name)) * 1e-3 / reps,
+            'lead_markers': sum(t < ours[0] for t in marks) if ours else 0,
+            'trail_marker': bool(ours) and any(t > ours[-1] for t in marks)}
+
+
+def trace_check(segment_ops, rng, dev, traces=8,
+                heads=((0, 0.0), (0, 0.02), (64, 0.02)), reps=20):
+    """`traces` profiler traces of each kernel at DP_RANK_UPDATE for each
+    head of `heads` ((lead, settle_s) of one_trace), none retaken: one row
+    a trace, to see when and where a trace loses kernel events."""
+    shape, e, n, d = DP_RANK_UPDATE
+    b = BATCHES[shape][0]
+    edges, mask = random_graph(rng, b, e, n)
+    h = torch.as_tensor(rng.normal(size=(b, e, d)), dtype=torch.float32)
+    g = torch.as_tensor(rng.normal(size=(b, n, d)), dtype=torch.float32)
+    h, g, edges, mask = (x.to(dev) for x in (h, g, edges, mask))
+    counts = _counts(segment_ops, edges, mask, n)
+    fns = {FORWARD_KERNEL: lambda: segment_ops.segment_mean_counts(
+        h, edges, mask, n), BACKWARD_KERNEL: lambda:
+        segment_ops.segment_mean_backward(g, counts, edges, mask)}
+    rows = []
+    for lead, settle_s in heads:
+        for kernel, fn in fns.items():
+            fn()
+            for i in range(traces):
+                rows.append({'shape': shape, 'B': b, 'kernel': kernel,
+                             'lead': lead, 'settle_s': settle_s, 'trace': i,
+                             'reps': reps,
+                             **one_trace(fn, kernel, reps, lead, settle_s)})
+    return rows
+
+
+def device_trace(fn, kernel, reps=20, attempts=5):
+    """(device ms per call of fn(), readings): the summed durations of
+    the `kernel` launches of reps calls of fn() (one a call), from a
+    torch.profiler trace (no host time). A trace that holds fewer than
+    reps of them is taken again, up to `attempts` traces; readings holds
+    every trace's one_trace dict, and the time is None when none was
+    whole (never a partial sum)."""
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(attempts):
+        readings.append(one_trace(fn, kernel, reps))
+        if readings[-1]['kernel_events'] == reps:
+            return readings[-1]['device_ms'], readings
+    return None, readings
+
+
+def device_time_ms(fn, kernel, reps=20):
+    """device_trace's time per call."""
+    return device_trace(fn, kernel, reps)[0]
 
 
 def _keep(edges, mask, num_nodes):
@@ -157,15 +242,16 @@ def library_backward(grad, counts, edges, mask
 
 
 def measure(segment_ops, rng, dev, reps=20):
-    """Every kernel of segment_ops at every shape (at each of its BATCHES)
-    on random bipartite graphs: error against the plain version, and the times of the kernel,
-    the plain version and the library call, with the bound."""
+    """Every kernel of segment_ops at every shape of SHAPES and at
+    DP_RANK_UPDATE (at each of its BATCHES) on random bipartite graphs:
+    error against the plain version, and the times of the kernel, the
+    plain version and the library call, with the bound."""
     # trees before the one forward kernel named the counts-returning
     # forward segment_mean_edge, and ran another kernel for segment_mean
     counts_fn = getattr(segment_ops, 'segment_mean_counts', None) or \
         segment_ops.segment_mean_edge
     rows = []
-    for shape, e, n, d, b in ((*s, b) for s in SHAPES
+    for shape, e, n, d, b in ((*s, b) for s in SHAPES + (DP_RANK_UPDATE,)
                               for b in BATCHES.get(s[0], (B,))):
         edges, mask = random_graph(rng, b, e, n)
         h = torch.where(mask[..., None], torch.as_tensor(
@@ -179,11 +265,11 @@ def measure(segment_ops, rng, dev, reps=20):
             cases = {
                 'segment_mean': (
                     lambda: segment_ops.segment_mean(h, edges, mask, n),
-                    ref, fwd_bound, lib_fwd, lib_out,
+                    FORWARD_KERNEL, ref, fwd_bound, lib_fwd, lib_out,
                     lambda: segment_ops.segment_mean_ref(h, edges, mask, n)),
                 counts_fn.__name__: (
                     lambda: counts_fn(h, edges, mask, n)[0],
-                    ref, fwd_bound, lib_fwd, lib_out,
+                    FORWARD_KERNEL, ref, fwd_bound, lib_fwd, lib_out,
                     lambda: segment_ops.segment_mean_counts_ref(
                         h, edges, mask, n)),
             }
@@ -193,11 +279,12 @@ def measure(segment_ops, rng, dev, reps=20):
             cases['segment_mean_backward'] = (
                 lambda: segment_ops.segment_mean_backward(g, counts, edges,
                                                           mask),
-                dref, bound_ms(backward_bytes(edges, mask, counts, d)),
+                BACKWARD_KERNEL, dref, bound_ms(backward_bytes(edges, mask, counts, d)),
                 lib_bwd, lib_dh,
                 lambda: segment_ops.segment_mean_backward_ref(
                     g, counts, edges, mask))
-            for name, (fn, want, bnd, lib, lib_res, plain) in cases.items():
+            for name, (fn, kernel, want, bnd, lib, lib_res,
+                       plain) in cases.items():
                 got = fn()
                 err = float((got - want).abs().max())
                 lib_err = float((lib_res - want).abs().max())
@@ -210,7 +297,7 @@ def measure(segment_ops, rng, dev, reps=20):
                     'equal_to_plain': bool(torch.equal(got, want)),
                     'library_max_abs_err': lib_err,
                     'ms': cuda_time_ms(fn, reps),
-                    'device_ms': device_time_ms(fn, reps),
+                    'device_ms': device_time_ms(fn, kernel, reps),
                     'plain_ms': cuda_time_ms(plain, reps),
                     'library_ms': cuda_time_ms(lib, reps),
                     'bound_ms': bnd})
@@ -234,7 +321,7 @@ def width_sweep(segment_ops, rng, dev, reps=20):
         rows.append({'shape': 'trainer_width_sweep', 'B': B, 'E': e, 'N': n,
                      'D': d, 'kernel': 'segment_mean',
                      'ms': cuda_time_ms(fn, reps),
-                     'device_ms': device_time_ms(fn, reps),
+                     'device_ms': device_time_ms(fn, FORWARD_KERNEL, reps),
                      'bound_ms': bound_ms(forward_bytes(edges, mask, n, d))})
     return rows
 
@@ -259,7 +346,7 @@ def backward_width_sweep(segment_ops, rng, dev, reps=20):
                      'N': n, 'D': d, 'kernel': 'segment_mean_backward',
                      'plan': plan(n, d)._asdict() if plan else None,
                      'ms': cuda_time_ms(fn, reps),
-                     'device_ms': device_time_ms(fn, reps),
+                     'device_ms': device_time_ms(fn, BACKWARD_KERNEL, reps),
                      'bound_ms': bound_ms(backward_bytes(edges, mask, counts,
                                                          d))})
     return rows
@@ -298,7 +385,7 @@ def backward_tile_sweep(segment_ops, rng, dev, reps=20):
                 'chosen': plan == segment_ops.backward_plan(n, d),
                 'equal_to_plain': bool(torch.equal(fn(), want)),
                 'ms': cuda_time_ms(fn, reps),
-                'device_ms': device_time_ms(fn, reps),
+                'device_ms': device_time_ms(fn, BACKWARD_KERNEL, reps),
                 'bound_ms': bound_ms(backward_bytes(edges, mask, counts, d))})
     return rows
 

@@ -143,10 +143,12 @@ def overflow_failures(causes: Dict[str, int]) -> int:
 @torch.no_grad()
 def rollout_bench(spec: EnvSpec, model, init_state: PlanState,
                   start_state: PlanState, generator: torch.Generator,
-                  num_steps: int):
+                  num_steps: int, record: list = None):
     """Throughput rollout: no trajectory storage, only episode statistics.
     Returns (final_state, n_episodes, n_failures, success_reward_sum,
-    failure-bit histogram), the counters as device tensors."""
+    failure-bit histogram), the counters as device tensors. With a list
+    as `record`, each step appends (action, was_reset, done, failure) to
+    it (was_reset: the env restarted from the initial state this step)."""
     batch_obs, batch_step = make_batch_fns(spec)
     B = start_state.stage.shape[0]
     dev = start_state.stage.device
@@ -160,12 +162,15 @@ def rollout_bench(spec: EnvSpec, model, init_state: PlanState,
     code_hist = torch.zeros(len(FAILURE_BIT_NAMES), dtype=torch.int64,
                             device=dev)
     for _ in range(num_steps):
+        was_reset = state.done
         state = reset_done(init_b, state)
         obs = batch_obs(state)
         action, _, _ = model.sample_action_logp_value(obs, generator,
                                                       use_mean)
         state, reward, done, info = batch_step(state, action)
         state, reward = apply_stage_rewards(spec, state, reward, info)
+        if record is not None:
+            record.append((action, was_reset, done, info['failure']))
         n_eps = n_eps + done.sum()
         n_fail = n_fail + info['failure'].sum()
         code_hist = code_hist + failure_histogram(info['failure_code'])

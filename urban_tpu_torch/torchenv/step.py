@@ -1547,9 +1547,10 @@ def env_step(spec: EnvSpec, state: PlanState, action: torch.Tensor,
     """One transition. action: (2,) int [land_use edge slot index, road
     node slot index]. Returns (next_state, reward, done, info).
 
-    With compute_rewards=False the stage-boundary reward is left to the
-    caller (rollout.apply_stage_rewards evaluates it only for steps where
-    some episode finished)."""
+    With compute_rewards (one env, eagerly) the stage-boundary reward is
+    computed on the step that ends the stage; with compute_rewards=False
+    (the vmapped step) it is left to the caller (rollout.apply_stage_rewards
+    evaluates it only for steps where some episode finished)."""
     in_lu = state.stage == 0
     in_rd = state.stage == 1
 
@@ -1593,20 +1594,6 @@ def env_step(spec: EnvSpec, state: PlanState, action: torch.Tensor,
     nxt = nxt.replace(poly_type=poly_type, seg_type=seg_type, stage=stage,
                       total_road_steps=total_road_steps)
 
-    # rewards at stage boundaries
-    road_reward_val = torch.zeros_like(nxt.land_use_reward)
-    if compute_rewards:
-        lu_reward_val = land_use_stage_reward(spec, nxt)
-        if spec.road_network_weight > 0 and not spec.skip_road:
-            road_reward_val = spec.road_network_weight * \
-                road_network_reward(spec, nxt)
-    else:
-        lu_reward_val = torch.zeros_like(nxt.land_use_reward)
-
-    land_use_reward = torch.where(lu_done, lu_reward_val, nxt.land_use_reward)
-    reward = torch.where(lu_done, lu_reward_val, 0.0)
-    reward = torch.where(rd_done, road_reward_val, reward)
-
     # failure / dead-state checks
     t_next = pending_land_use_type(spec, nxt)
     no_moves = (stage == 0) & \
@@ -1616,6 +1603,22 @@ def env_step(spec: EnvSpec, state: PlanState, action: torch.Tensor,
     fail_bits = fail_bits | _bit(FAIL_NO_MOVES, no_moves) \
         | _bit(FAIL_NO_ROAD_MOVES, no_road_moves)
     fail = fail_bits != 0
+
+    # rewards at stage boundaries, each evaluated only on the step that
+    # needs it (host-synced branches: one env, never under vmap)
+    lu_reward_val = torch.zeros_like(nxt.land_use_reward)
+    road_reward_val = torch.zeros_like(nxt.land_use_reward)
+    if compute_rewards:
+        if bool(lu_done):
+            lu_reward_val = land_use_stage_reward(spec, nxt)
+        if spec.road_network_weight > 0 and not spec.skip_road \
+                and bool(rd_done & ~fail):
+            road_reward_val = spec.road_network_weight * \
+                road_network_reward(spec, nxt)
+
+    land_use_reward = torch.where(lu_done, lu_reward_val, nxt.land_use_reward)
+    reward = torch.where(lu_done, lu_reward_val, 0.0)
+    reward = torch.where(rd_done, road_reward_val, reward)
 
     done = (lu_done & spec.skip_road) | rd_done | fail
     reward = torch.where(fail, FAILURE_REWARD, reward)
