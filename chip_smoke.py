@@ -12,9 +12,15 @@ memory bound (urban_tpu_torch/kernel_bench.py). The backward must give the
 plain version's bits, on the card and on the CPU.
 Runs the SGNN policy on the card against the same model on the CPU, and
 one PPO loss backward on the card against the CPU. Drives the batched HLG
-rollout (256 envs x 30 steps), steps GPU and CPU environments in lockstep,
-then runs one full HLG PPO train_iteration (256 envs x 50 steps, 4 epochs
-of minibatch 256) and a 16-env greedy evaluation. Then the road and
+rollout (256 envs x 30 steps) through the captured CUDA graph of its step
+(torchenv/program.py), as every rollout, collect and eval below runs;
+then the same rollout stepped eagerly against the graph (the same
+actions, counters, final states and generator state) and a profiler
+trace of one replay, which must hold the forward kernel's launches; steps
+GPU and CPU environments in lockstep, then runs one full HLG PPO
+train_iteration (256 envs x 35 steps, 4 epochs of minibatch 256; its
+collect also stepped eagerly first, which must take the same actions) and
+a 16-env greedy evaluation. Then the road and
 concept rewards on the card against the CPU, a road-stage lockstep of the
 grid scenario on the card against the CPU, and one full grid PPO
 train_iteration with land use and roads (192 envs x 110 steps, 4 epochs of
@@ -41,7 +47,7 @@ again with the env on the CPU), the host-oracle lockstep replay
 (tools/divergence.py) with the env on the card against the CPU, and the
 plan-scoring demo on the two-phase run's phase-2 best checkpoint and a
 published plan. The launch counts show that each path went through its
-kernels.
+kernels; a replay adds the launches its capture made.
 The tail, phases whose loops are host-bound while the card idles (the
 road and concept reward checks, the GA phase, the failure replay and
 both sides of the divergence replay), runs in child processes, each on
@@ -55,7 +61,7 @@ after another or in the child processes: what the children save.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 13-15 minutes on an H100, as fast as the host is.
+fails. About 8 minutes on an H100, as fast as the host is.
 """
 import argparse
 import dataclasses
@@ -336,6 +342,77 @@ def lockstep(spec, s_cpu, s_gpu, n_steps, choose):
         rewards.append(r_cpu)
         s_cpu, s_gpu = n_cpu, n_gpu
     return n_steps, infos, rewards
+
+
+def rollout_graph_vs_eager(bench, kb, segment_ops, dev, B, layers):
+    """The bench's HLG rollout (B envs x ROLLOUT_STEPS from fresh envs,
+    one seed) stepped eagerly, then through its captured graph: each step's
+    actions, resets, dones and failures, the counters, the failure
+    histogram, the final state, the generator's state after and the
+    launch counts must be equal. Then one profiler trace of a single
+    replay must hold exactly `layers` forward kernel events: the kernel
+    runs inside the graph. Returns what it measured."""
+    from urban_tpu_torch.torchenv.program import StepProgram
+    from urban_tpu_torch.torchenv.rollout import broadcast_state, rollout_bench
+    from urban_tpu_torch.torchenv.state import FIELD_NAMES
+    cfg, spec, init = bench.setup('hlg', device=dev)
+    model = bench.make_model(cfg, spec, seed=0, device=dev)
+    start = broadcast_state(init.replace(done=torch.ones_like(init.done)), B)
+    runs = {}
+    for mode in ('eager', 'graph'):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        record = []
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        program = StepProgram(spec, model, init, B, 'bench', gen,
+                              eager=mode == 'eager')
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        segment_ops.reset_launches()
+        out = rollout_bench(spec, model, init, start, gen, ROLLOUT_STEPS,
+                            record=record, program=program)
+        torch.cuda.synchronize(dev)
+        runs[mode] = {'out': out, 'record': record, 'program': program,
+                      'generator': gen.get_state(),
+                      'launches': dict(segment_ops.launches),
+                      'setup_seconds': t1 - t0,
+                      'seconds': time.perf_counter() - t1}
+    e, g = runs['eager'], runs['graph']
+
+    def equal(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    checks = {
+        'actions_resets_dones_failures': len(e['record']) == ROLLOUT_STEPS
+        and all(equal(x, y) for x, y in zip(e['record'], g['record'])),
+        'counters': equal(e['out'][1:4], g['out'][1:4]),
+        'failure_histogram': torch.equal(e['out'][4], g['out'][4]),
+        'final_state': equal([getattr(e['out'][0], n) for n in FIELD_NAMES],
+                             [getattr(g['out'][0], n) for n in FIELD_NAMES]),
+        'generator_state': torch.equal(e['generator'], g['generator']),
+        'launches': e['launches'] == g['launches'] == {
+            'segment_mean': ROLLOUT_STEPS * layers,
+            'segment_mean_backward': 0}}
+    if not all(checks.values()):
+        raise AssertionError(f'graph vs eager: {checks}')
+    program = g['program']
+    trace = kb.one_trace(program.graph.replay, kb.FORWARD_KERNEL, reps=1)
+    if trace['kernel_events'] != layers:
+        raise AssertionError(f'a replay\'s trace holds {trace} forward '
+                             f'kernel events, not {layers}')
+    rates = {m: B * ROLLOUT_STEPS / r['seconds'] for m, r in runs.items()}
+    return {'envs': B, 'steps': ROLLOUT_STEPS, 'checks': checks,
+            'episodes': int(g['out'][1]), 'failures': int(g['out'][2]),
+            'env_steps_per_sec': rates,
+            'graph_speedup': rates['graph'] / rates['eager'],
+            'seconds': {m: r['seconds'] for m, r in runs.items()},
+            'program_setup_seconds': {m: r['setup_seconds']
+                                      for m, r in runs.items()},
+            'warmup_seconds': program.warmup_seconds,
+            'capture_seconds': program.capture_seconds,
+            'instantiate_seconds': program.instantiate_seconds,
+            'graph_pool_bytes': program.pool_bytes,
+            'replay_trace': trace}
 
 
 def compare_road_reward(spec, states_cpu, dev, what):
@@ -1570,7 +1647,6 @@ def smoke(t_start, children, keep_dir):
 
     # ---- 5. the slice: batched HLG rollout ------------------------------
     t0 = time.time()
-    bench.run_rollout_bench(num_envs=B, num_steps=2, device=dev)  # warm-up
     layers = model_cpu.num_gcn_layers
     segment_ops.reset_launches()
     stats = bench.run_rollout_bench(num_envs=B, num_steps=ROLLOUT_STEPS,
@@ -1587,6 +1663,12 @@ def smoke(t_start, children, keep_dir):
     if not stats['overflow_gate_1pct_pass']:
         raise AssertionError(f'capacity gate: {stats}')
     phase('rollout', t0, kernel_launches=launches, **stats)
+
+    # ---- 5b. the captured graph against the eager loop -----------------
+    t0 = time.time()
+    gve = rollout_graph_vs_eager(bench, kb, segment_ops, dev, B, layers)
+    torch.cuda.empty_cache()
+    phase('rollout_graph_vs_eager', t0, **gve)
     # the divergence replay's CPU side (one core, no card) from here on,
     # after the rollout whose env steps/s is the host's yardstick
     children['divergence_side:cpu'] = start_child('divergence_side', 'cpu')
@@ -1611,7 +1693,22 @@ def smoke(t_start, children, keep_dir):
                                      eval_envs=EVAL_ENVS, root_dir=run_dir)
         before = {k: p.detach().clone()
                   for k, p in trainer.model.named_parameters()}
+        # the same collect stepped eagerly, from the trainer's states and
+        # generator state: the graphed collect must take its actions
+        gen = torch.Generator(device=dev)
+        gen.set_state(trainer.generator.get_state())
+        torch.cuda.synchronize(dev)
+        t_eager = time.perf_counter()
+        _, traj = rollout(trainer.spec, trainer.model, trainer.init_state,
+                          trainer.env_states, gen, TRAIN_LEN, eager=True)
+        eager_actions = traj.actions.cpu().numpy()
+        t_eager = time.perf_counter() - t_eager
+        del traj
         train = bench.measure_train_iteration(trainer)  # resets the counts
+        if not np.array_equal(trainer.last_actions, eager_actions):
+            raise AssertionError('the graphed collect\'s actions are not the '
+                                 'eager collect\'s')
+        train['t_sample_eager_s'] = t_eager
         train_launches = train['kernel_launches']
         mb_layers = train['update_minibatch_steps'] * layers
         expect = {'segment_mean': TRAIN_LEN * layers + mb_layers,
@@ -1838,7 +1935,8 @@ def smoke(t_start, children, keep_dir):
     replay = tail(dev, children)
 
     phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
-        'env_steps_per_sec'])
+        'env_steps_per_sec'], hlg_rollout_eager_env_steps_per_sec=gve[
+        'env_steps_per_sec']['eager'])
     shape = 'grid_trainer'
     kernels = [
         ('segment_mean',

@@ -8,8 +8,16 @@ trainer's capacities). --cfg names the scenario (hlg, grid, dhm, ...).
     python -m urban_tpu_torch.bench --train --num_envs 256 --rollout_len 50
     python -m urban_tpu_torch.bench --train --cfg grid --num_envs 192 \
         --rollout_len 120
+    python -m urban_tpu_torch.bench --profile --num_steps 3 [--eager]
 
-prints one JSON line of the statistics. A rate measured on a CPU says
+On the card each step replays one captured CUDA graph of the batched step
+(torchenv/program.py), the trainer's collect and eval too; --eager steps
+the same ops one launch at a time. --profile traces a few steps: with the
+graph, the host's launches a step, device busy and the idle share; with
+--eager, the per-layer split (observation, policy, env step, stage
+rewards).
+
+Each prints one JSON line of the statistics. A rate measured on a CPU says
 nothing about the card; the result names the device it ran on. After the
 rollout (not with --train or --profile) the failing episodes of the same
 corpus, and a sample of its successes, are replayed through the host
@@ -33,6 +41,7 @@ import torch
 from urban_tpu_torch.host.envs.plan_client import PlanClient
 from urban_tpu_torch.host.utils.io import load_yaml
 from urban_tpu_torch.models.model import create_model
+from urban_tpu_torch.torchenv.program import StepProgram
 from urban_tpu_torch.torchenv.rollout import (broadcast_state, failure_causes,
                                               overflow_failures, rollout_bench)
 from urban_tpu_torch.torchenv.state import build_env_spec, build_initial_state
@@ -119,9 +128,13 @@ def _sync(device: torch.device) -> None:
 
 
 def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
-                      device='cuda', seed: int = 0, name: str = 'hlg') -> dict:
+                      device='cuda', seed: int = 0, name: str = 'hlg',
+                      eager: bool = False) -> dict:
     """One batched rollout of scenario `name`, num_envs x num_steps, every
-    env starting fresh; returns env steps/s and the episode statistics."""
+    env starting fresh; returns env steps/s and the episode statistics.
+    The step is a StepProgram, captured on the card unless eager; its
+    capture is set-up, timed apart (program_setup_seconds, and
+    program_stats)."""
     set_precision_flags()
     device = torch.device(device)
     build_kernels(device)
@@ -133,8 +146,13 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
 
     _sync(device)
     t0 = time.perf_counter()
+    program = StepProgram(spec, model, init_state, num_envs, 'bench', gen,
+                          eager=eager)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
     _, n_eps, n_fail, r_sum, code_hist = rollout_bench(
-        spec, model, init_state, start, gen, num_steps)
+        spec, model, init_state, start, gen, num_steps, program=program)
     _sync(device)
     dt = time.perf_counter() - t0
     eps, fails = int(n_eps), int(n_fail)
@@ -149,6 +167,7 @@ def run_rollout_bench(num_envs: int = 256, num_steps: int = 30,
         'mean_episode_reward': float(r_sum) / max(eps - fails, 1),
         'overflow_failures': overflow,
         'overflow_gate_1pct_pass': overflow <= 0.01 * max(eps, 1),
+        'program_setup_seconds': t_setup, **program_stats(program),
     }
 
 
@@ -189,7 +208,9 @@ def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
 def measure_train_iteration(trainer) -> dict:
     """One train_iteration (collect + update, no eval): its phase times,
     the rates, the kernel launches of the iteration and the peak device
-    memory."""
+    memory; on the card, what the collect program's first capture took
+    (set-up inside t_sample on the iteration that makes it) and its
+    graph's pool."""
     from urban_tpu_torch.ops import segment_ops
     device = trainer.device
     build_kernels(device)
@@ -222,7 +243,20 @@ def measure_train_iteration(trainer) -> dict:
         'max_memory_allocated_bytes': (
             torch.cuda.max_memory_allocated(device)
             if device.type == 'cuda' else None),
+        'collect_program': program_stats(trainer.program(
+            'collect', trainer.local_envs)),
     }
+
+
+def program_stats(program: StepProgram) -> dict:
+    """Whether a step program is a captured graph, and the seconds of its
+    warm-up, capture and instantiation and its pool's bytes (None when
+    eager)."""
+    return {'graphed': program.graph is not None,
+            'warmup_seconds': program.warmup_seconds,
+            'capture_seconds': program.capture_seconds,
+            'instantiate_seconds': program.instantiate_seconds,
+            'graph_pool_bytes': program.pool_bytes}
 
 
 def run_train_bench(num_envs: int = 256, rollout_len: int = 50,
@@ -234,18 +268,23 @@ def run_train_bench(num_envs: int = 256, rollout_len: int = 50,
 
 @torch.no_grad()
 def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
-                    seed: int = 0, name: str = 'hlg', warmup: int = 1) -> dict:
+                    seed: int = 0, name: str = 'hlg', warmup: int = 1,
+                    eager: bool = False) -> dict:
     """Where one rollout step's time goes, on a CUDA device, after `warmup`
     steps from fresh envs (auto-reset as in the rollout; many warm-up steps
-    reach the steady state where episodes end and stage rewards run):
-    host-clock time of each layer (observation, policy, env step, stage
-    rewards) with a synchronize after each, then a torch.profiler trace of
-    the same steps for the device's busy share, kernel launches per step
-    and the kernels that take the most device time."""
+    reach the steady state where episodes end and stage rewards run).
+    First the host-clock time of each layer with a synchronize after each:
+    the graph's replay (with the copy of the state into its buffers) and
+    the stage rewards; with eager, the step's own layers (observation,
+    policy, env step) and the stage rewards. Then a torch.profiler trace
+    of the same steps: the device's busy share, the host's launches a step
+    (runtime calls that launch a kernel, a graph, a copy or a memset), the
+    device's kernels a step and the kernels that take the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
-                                                  make_batch_fns, reset_done)
+                                                  reset_done)
     set_precision_flags()
     device = torch.device(device)
     if device.type != 'cuda':
@@ -253,11 +292,10 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     build_kernels(device)
     cfg, spec, init_state = setup(name, device=device)
     model = make_model(cfg, spec, seed, device)
-    init_b = broadcast_state(init_state, num_envs)
-    state = init_b
+    state = broadcast_state(init_state, num_envs)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    batch_obs, batch_step = make_batch_fns(spec)
-    use_mean = torch.zeros(num_envs, dtype=torch.bool, device=device)
+    program = StepProgram(spec, model, init_state, num_envs, 'bench', gen,
+                          eager=eager)
 
     def step(state, layers=None):
         marks = [time.perf_counter()]
@@ -266,18 +304,24 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
             if layers is not None:
                 _sync(device)
                 marks.append(time.perf_counter())
-        state = reset_done(init_b, state)
-        obs = batch_obs(state)
-        mark()
-        action, _, _ = model.sample_action_logp_value(obs, gen, use_mean)
-        mark()
-        state, reward, _, info = batch_step(state, action)
+        if eager:
+            names = ('obs', 'policy', 'env_step', 'stage_rewards')
+            state = reset_done(program.init_b, state)
+            obs = program.batch_obs(state)
+            mark()
+            action, _, _ = model.sample_action_logp_value(obs, gen,
+                                                          program.use_mean)
+            mark()
+            state, reward, _, info = program.batch_step(state, action)
+        else:
+            names = ('replay', 'stage_rewards')
+            out = program.run(state)
+            state, reward, info = out['state'], out['reward'], out['info']
         mark()
         state, _ = apply_stage_rewards(spec, state, reward, info)
         mark()
         if layers is not None:
-            for layer, a, b in zip(('obs', 'policy', 'env_step',
-                                    'stage_rewards'), marks, marks[1:]):
+            for layer, a, b in zip(names, marks, marks[1:]):
                 layers[layer] = layers.get(layer, 0.0) + (b - a)
         return state
 
@@ -294,22 +338,34 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
             state = step(state)
         _sync(device)
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
+    events = prof.events()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(('cuda', 'cu'))
+                and any(k in e.name for k in ('Launch', 'Memcpy', 'Memset'))]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_call = {}
+    for e in launches:
+        by_call[e.name] = by_call.get(e.name, 0) + 1
     return {
         'device': torch.cuda.get_device_name(device), 'cfg': name,
         'num_envs': num_envs, 'warmup_steps': warmup, 'steps': num_steps,
+        **program_stats(program),
         'layer_seconds_per_step': {k: v / num_steps
                                    for k, v in layers.items()},
         'profiled_wall_seconds_per_step': wall / num_steps,
         'device_busy_seconds_per_step': busy_us * 1e-6 / num_steps,
         'device_idle_share': 1.0 - busy_us * 1e-6 / wall,
-        'kernel_launches_per_step': len(kernels) / num_steps,
+        'host_launches_per_step': len(launches) / num_steps,
+        'host_launches_by_call_per_step': {k: v / num_steps
+                                           for k, v in by_call.items()},
+        'device_kernels_per_step': len(kernels) / num_steps,
         'top_kernels_ms_per_step': {k[:80]: v * 1e-3 / num_steps
                                     for k, v in top},
     }
@@ -331,6 +387,10 @@ def main() -> None:
     ap.add_argument('--rollout_len', type=int, default=50)
     ap.add_argument('--warmup', type=int, default=1,
                     help='--profile: steps before the profiled ones')
+    ap.add_argument('--eager', action='store_true',
+                    help='the rollout and --profile: step eagerly instead '
+                    'of replaying the captured step (with --profile: the '
+                    'per-layer split)')
     ap.add_argument('--replay_budget_s', type=float, default=float(
         os.environ.get('BENCH_REPLAY_BUDGET_S', 300)),
                     help='host seconds for the failure replay (default: '
@@ -343,10 +403,10 @@ def main() -> None:
                               a.cfg)
     elif a.profile:
         out = profile_rollout(a.num_envs, a.num_steps, a.device, a.seed,
-                              a.cfg, a.warmup)
+                              a.cfg, a.warmup, a.eager)
     else:
         out = run_rollout_bench(a.num_envs, a.num_steps, a.device, a.seed,
-                                a.cfg)
+                                a.cfg, a.eager)
         if not a.skip_replay:
             out.update(run_failure_replay(a.num_envs, a.num_steps, a.device,
                                           a.seed, a.cfg, a.replay_budget_s))

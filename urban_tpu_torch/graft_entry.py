@@ -23,6 +23,7 @@ from urban_tpu_torch.parallel.mesh import (Mesh, check_replicated,
                                            make_dp_ppo_update, make_mesh,
                                            replicate, shard_batch, spawn)
 from urban_tpu_torch.rl.ppo import PPOConfig, make_optimizer
+from urban_tpu_torch.torchenv.program import StepProgram
 from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
                                               episode_success_weights,
                                               make_batch_fns, rollout)
@@ -79,9 +80,12 @@ def _train_trajectory(mesh: Mesh, B: int, T: int, iters: int):
     generator = torch.Generator(device=mesh.device).manual_seed(0)
     if mesh.world_size > 1:
         generator = RowShard(generator, mesh.block(B).start, B)
+    program = StepProgram(spec, model, init_state, states.stage.shape[0],
+                          'collect', generator)
     losses, gnorms = [], []
     for _ in range(iters):
-        states, traj = rollout(spec, model, init_state, states, generator, T)
+        states, traj = rollout(spec, model, init_state, states, generator, T,
+                               program=program)
         weights = episode_success_weights(traj.dones, traj.failures)
         if not float(mesh.all_reduce(weights.sum())) > 0:
             # T is far below the episode length, so no episode completes

@@ -6,10 +6,13 @@ trajectory kept on the device (``collect``), the success weights and GAE,
 then ``num_optim_epoch`` shuffled epochs of minibatch PPO steps
 (``update``: a forward and a backward of the SGNN per minibatch, through
 the segment-mean kernel and its backward kernel on a CUDA device), then
-greedy evaluation episodes with best-plan tracking (``eval_agent``). The
-minibatch permutation comes from ``np.random.default_rng(seed +
-iteration)``, as in the JAX trainer, so both take the same minibatches;
-the rollout and sampling noise comes from an explicit ``torch.Generator``.
+greedy evaluation episodes with best-plan tracking (``eval_agent``).
+Collect and eval each step through a ``StepProgram`` that the trainer
+keeps (``program``): on the card a captured CUDA graph of the whole
+batched step, replayed once a step. The minibatch permutation comes from
+``np.random.default_rng(seed + iteration)``, as in the JAX trainer, so
+both take the same minibatches; the rollout and sampling noise comes
+from an explicit ``torch.Generator``.
 
 ``run_training`` runs one phase, or with ``separate_train`` the two-phase
 land-use -> road curriculum: ``iterations`` of land use only (the phase-1
@@ -67,6 +70,7 @@ from urban_tpu_torch.parallel.mesh import (Mesh, check_replicated,
                                            local_minibatch_rows, make_mesh,
                                            replicate, spawn, visible_devices)
 from urban_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update_epoch
+from urban_tpu_torch.torchenv.program import StepProgram
 from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
                                               episode_success_weights,
                                               eval_rollout, failure_causes,
@@ -180,6 +184,10 @@ class Trainer:
         self._reset_env_batch()
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        # the step programs of collect and eval (program()), which share
+        # one graph memory pool on the card
+        self.programs: Dict[tuple, StepProgram] = {}
+        self.graph_pool = None
         self.best_reward = -1000.0
         self.best_plan_state = None       # plan_state_to_numpy of one env
         self.best_params = None           # state_dict at the best eval
@@ -220,15 +228,38 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
+    def program(self, kind: str, batch: int,
+                noise_rate: float = 1.0) -> StepProgram:
+        """The step program of `kind` ('collect' or 'eval') at `batch`
+        envs, made on first use and kept, keyed on all that its capture
+        holds: kind, spec, model, batch and noise_rate. A collect program
+        of a data-parallel rank draws its rows of the whole batch's
+        stream."""
+        key = (kind, self.spec, self.model, batch, noise_rate)
+        if key not in self.programs:
+            generator = self.generator
+            if kind == 'collect' and self.mesh.world_size > 1:
+                generator = RowShard(generator, self.env_start,
+                                     self.num_envs)
+            if self.graph_pool is None and self.device.type == 'cuda':
+                self.graph_pool = torch.cuda.graph_pool_handle()
+            self.programs[key] = StepProgram(
+                self.spec, self.model, self.init_state, batch, kind,
+                generator, noise_rate, pool=self.graph_pool)
+        return self.programs[key]
+
+    def drop_programs(self) -> None:
+        """Free the step programs and their graph memory pool."""
+        self.programs.clear()
+        self.graph_pool = None
+
     def collect(self):
         """This rank's (T, local_envs) trajectory; its random draws are its
         rows of the whole batch's."""
-        generator = self.generator
-        if self.mesh.world_size > 1:
-            generator = RowShard(generator, self.env_start, self.num_envs)
+        program = self.program('collect', self.local_envs)
         self.env_states, traj = rollout(
             self.spec, self.model, self.init_state, self.env_states,
-            generator, self.rollout_len)
+            program.generator, self.rollout_len, program=program)
         return traj
 
     def update(self, traj, iteration: int, weights=None):
@@ -290,7 +321,8 @@ class Trainer:
         reward, mean reward channels of the successful episodes)."""
         start = broadcast_state(self.init_state, self.eval_envs)
         final, total_r, done, failure = eval_rollout(
-            self.spec, self.model, start, self.generator, self.rollout_len)
+            self.spec, self.model, start, self.generator, self.rollout_len,
+            program=self.program('eval', self.eval_envs))
         total_r = total_r.cpu().numpy()
         ok = (done & ~failure).cpu().numpy()
         mean_r = float(total_r[ok].mean()) if ok.any() else -1.0
@@ -474,12 +506,13 @@ def freeze_land_use_trainer(trainer: Trainer, table,
                             warm_start_params=None) -> Trainer:
     """Switch a trainer to road-only training around a frozen land-use
     plan (a host GeoTable); cfg.finetune() must already have been applied.
-    The phase-1 model, optimizer and env batch are freed first, so that
-    the device's peak is phase 2's own. warm_start_params: a phase-1 state
-    dict (normally the best-eval one) to carry into the rebuilt model
-    where names and shapes fit, under a fresh optimizer."""
+    The phase-1 model, optimizer, step programs and env batch are freed
+    first, so that the device's peak is phase 2's own. warm_start_params:
+    a phase-1 state dict (normally the best-eval one) to carry into the
+    rebuilt model where names and shapes fit, under a fresh optimizer."""
     trainer.plc.freeze_land_use(table)
     trainer.plc.unplan_all_land_use()
+    trainer.drop_programs()
     trainer.model = trainer.optimizer = None
     trainer.env_states = trainer.init_state = None
     if trainer.device.type == 'cuda':

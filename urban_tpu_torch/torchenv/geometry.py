@@ -26,6 +26,7 @@ module under ``torch.compile``, which would fuse them.
 """
 from __future__ import annotations
 
+import functools
 import struct
 
 import torch
@@ -37,6 +38,14 @@ FLT_EPS = 1.1920929e-7   # np.finfo(np.float32).eps
 # ---------------------------------------------------------------------------
 # JAX-semantics indexing helpers
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def const(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant tensor (value: a number or a tuple), made once per
+    device: a step that a CUDA graph captures may not copy from the host.
+    Never written to."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
 
 def arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=like.device)
@@ -104,22 +113,13 @@ _ATAN_BIG = _f32(_ATAN_ROWS[4][4] + _ATAN_ROWS[4][5])   # x >= 2**25
 _PI_O_2 = _f32(1.5707963705e+00)
 _PI = _f32(3.1415927410e+00)
 _PI_LO = _f32(-8.7422776573e-08)
-_atan_tables = {}
-
-
-def _atan_table(device):
-    """(breaks, rows) as tensors on `device`, made once per device."""
-    if device not in _atan_tables:
-        _atan_tables[device] = (
-            torch.tensor(_ATAN_BREAKS, dtype=torch.float32, device=device),
-            torch.tensor(_ATAN_ROWS, dtype=torch.float32, device=device))
-    return _atan_tables[device]
 
 
 def _atanf_nonneg(x):
     """fdlibm atanf for finite x >= 0, each f32 operation as the C code
     writes it (no contraction)."""
-    breaks, rows = _atan_table(x.device)
+    breaks = const(_ATAN_BREAKS, torch.float32, x.device)
+    rows = const(_ATAN_ROWS, torch.float32, x.device)
     a, b, c, d, hi, lo = rows[(x[..., None] >= breaks).sum(-1)].unbind(-1)
     xr = (a * x - b) / (c + d * x)
     z = xr * xr

@@ -2,13 +2,15 @@
 trainer (counterpart of urban_tpu/jaxenv/rollout.py).
 
 The per-environment step and observation functions are lifted over a
-leading environment axis with ``torch.func.vmap``; ``lax.scan`` over time
-becomes a Python loop (forward for the rollouts, reverse for GAE and the
-success weights), and finished environments auto-reset to the initial
-state. Stage-boundary rewards are evaluated only on steps where some
-environment finished a stage, and only for those environments: a host
-sync per step and stage (``if mask.any()``) stands in for the JAX
-batch-level ``lax.cond``.
+leading environment axis with ``torch.func.vmap``. Where JAX jits a
+``lax.scan`` of the vmapped step, the rollouts here loop over time in
+Python around one ``StepProgram`` (``program.py``): on the card its step
+is a captured CUDA graph, replayed once a step; finished environments
+auto-reset to the initial state inside it. Stage-boundary rewards run
+outside the graph, only on steps where some environment finished a stage
+and only for those environments: a host sync per step and stage (``if
+mask.any()``) stands in for the JAX batch-level ``lax.cond``. GAE and the
+success weights are reverse loops.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 import torch.distributed as dist
 from torch.func import vmap
 
-from urban_tpu_torch.models.policy import uniform
+from urban_tpu_torch.torchenv.program import (StepProgram, broadcast_state,
+                                              reset_done)
 from urban_tpu_torch.torchenv.state import FIELD_NAMES, EnvSpec, PlanState
 from urban_tpu_torch.torchenv.step import (FAILURE_BIT_NAMES,
                                            batched_road_network_reward,
@@ -107,19 +110,6 @@ def apply_stage_rewards(spec: EnvSpec, states: PlanState, reward, info,
     return states, reward
 
 
-def broadcast_state(state: PlanState, batch: int) -> PlanState:
-    return state.map(lambda x: x.expand((batch,) + x.shape).clone())
-
-
-def reset_done(init_b: PlanState, state: PlanState) -> PlanState:
-    """Replace finished environments with the initial state."""
-    done = state.done
-    return PlanState(*(
-        torch.where(done.reshape((-1,) + (1,) * (s.dim() - 1)), i, s)
-        for i, s in ((getattr(init_b, n), getattr(state, n))
-                     for n in FIELD_NAMES)))
-
-
 def failure_histogram(codes: torch.Tensor) -> torch.Tensor:
     """(n_bits,) count of the failure codes that carry bit i, at index i."""
     bits = torch.arange(len(FAILURE_BIT_NAMES), device=codes.device,
@@ -143,18 +133,19 @@ def overflow_failures(causes: Dict[str, int]) -> int:
 @torch.no_grad()
 def rollout_bench(spec: EnvSpec, model, init_state: PlanState,
                   start_state: PlanState, generator: torch.Generator,
-                  num_steps: int, record: list = None):
+                  num_steps: int, record: list = None, eager: bool = False,
+                  program: StepProgram = None):
     """Throughput rollout: no trajectory storage, only episode statistics.
     Returns (final_state, n_episodes, n_failures, success_reward_sum,
     failure-bit histogram), the counters as device tensors. With a list
     as `record`, each step appends (action, was_reset, done, failure) to
-    it (was_reset: the env restarted from the initial state this step)."""
-    batch_obs, batch_step = make_batch_fns(spec)
+    it (was_reset: the env restarted from the initial state this step).
+    The step is `program` (a 'bench' StepProgram of this batch and
+    generator), else a new one: captured on the card unless eager."""
     B = start_state.stage.shape[0]
     dev = start_state.stage.device
-    init_b = broadcast_state(init_state, B)
-    use_mean = torch.zeros(B, dtype=torch.bool, device=dev)
-
+    program = program or StepProgram(spec, model, init_state, B, 'bench',
+                                     generator, eager=eager)
     state = start_state
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
     n_fail = torch.zeros((), dtype=torch.int64, device=dev)
@@ -162,21 +153,20 @@ def rollout_bench(spec: EnvSpec, model, init_state: PlanState,
     code_hist = torch.zeros(len(FAILURE_BIT_NAMES), dtype=torch.int64,
                             device=dev)
     for _ in range(num_steps):
-        was_reset = state.done
-        state = reset_done(init_b, state)
-        obs = batch_obs(state)
-        action, _, _ = model.sample_action_logp_value(obs, generator,
-                                                      use_mean)
-        state, reward, done, info = batch_step(state, action)
-        state, reward = apply_stage_rewards(spec, state, reward, info)
+        out = program.run(state)
+        done, info = out['done'], out['info']
+        state, reward = apply_stage_rewards(spec, out['state'],
+                                            out['reward'], info)
         if record is not None:
-            record.append((action, was_reset, done, info['failure']))
+            record.append(tuple(x.clone() for x in (
+                out['action'], out['was_reset'], done, info['failure'])))
         n_eps = n_eps + done.sum()
         n_fail = n_fail + info['failure'].sum()
         code_hist = code_hist + failure_histogram(info['failure_code'])
         reward_sum = reward_sum + torch.where(done & ~info['failure'],
                                               reward, 0.0).sum()
-    return state, n_eps, n_fail, reward_sum, code_hist
+    # the step's outputs are the program's buffers: return a copy
+    return state.map(torch.clone), n_eps, n_fail, reward_sum, code_hist
 
 
 class Trajectory(NamedTuple):
@@ -194,16 +184,19 @@ class Trajectory(NamedTuple):
 @torch.no_grad()
 def rollout(spec: EnvSpec, model, init_state: PlanState,
             start_state: PlanState, generator: torch.Generator,
-            num_steps: int, noise_rate: float = 1.0):
+            num_steps: int, noise_rate: float = 1.0, eager: bool = False,
+            program: StepProgram = None):
     """Collect (T, B) trajectories with auto-reset, stored on the states'
     device. A row explores (samples its action) where a uniform draw is
     below noise_rate; otherwise it takes the argmax. `generator` may be a
-    data-parallel rank's RowShard of the batch-wide stream. Returns
-    (final_states, Trajectory)."""
-    batch_obs, batch_step = make_batch_fns(spec)
+    data-parallel rank's RowShard of the batch-wide stream. The step is
+    `program` (a 'collect' StepProgram of this batch, generator and
+    noise_rate), else a new one: captured on the card unless eager.
+    Returns (final_states, Trajectory)."""
     B = start_state.stage.shape[0]
     dev = start_state.stage.device
-    init_b = broadcast_state(init_state, B)
+    program = program or StepProgram(spec, model, init_state, B, 'collect',
+                                     generator, noise_rate, eager=eager)
 
     def buffer(x):
         return torch.empty((num_steps,) + tuple(x.shape), dtype=x.dtype,
@@ -211,43 +204,45 @@ def rollout(spec: EnvSpec, model, init_state: PlanState,
 
     state, bufs = start_state, None
     for t in range(num_steps):
-        state = reset_done(init_b, state)
-        obs = batch_obs(state)
-        use_mean = uniform((B,), generator, dev) >= noise_rate
-        action, log_prob, value = model.sample_action_logp_value(
-            obs, generator, use_mean)
-        state, reward, done, info = batch_step(state, action)
-        state, reward = apply_stage_rewards(spec, state, reward, info)
-        out = (*obs, action, log_prob[..., 0], value[..., 0], reward, done,
-               info['failure'], (~use_mean).to(torch.float32),
+        out = program.run(state)
+        info = out['info']
+        state, reward = apply_stage_rewards(spec, out['state'],
+                                            out['reward'], info)
+        row = (*out['obs'], out['action'], out['log_prob'], out['value'],
+               reward, out['done'], info['failure'], out['explored'],
                info['failure_code'])
         if bufs is None:
-            bufs = [buffer(x) for x in out]
-        for buf, x in zip(bufs, out):
+            bufs = [buffer(x) for x in row]
+        for buf, x in zip(bufs, row):
             buf[t].copy_(x)
     n_obs = len(bufs) - 8
-    return state, Trajectory(tuple(bufs[:n_obs]), *bufs[n_obs:])
+    return (state.map(torch.clone),
+            Trajectory(tuple(bufs[:n_obs]), *bufs[n_obs:]))
 
 
 @torch.no_grad()
 def eval_rollout(spec: EnvSpec, model, start_state: PlanState,
-                 generator: torch.Generator, num_steps: int):
+                 generator: torch.Generator, num_steps: int,
+                 eager: bool = False, program: StepProgram = None):
     """Greedy evaluation episodes: B fresh envs stepped with argmax actions
     and frozen once done (no auto-reset), so the terminal plan states
-    survive for scoring. Returns (final_states, total_reward (B,),
-    done (B,), failure (B,))."""
-    batch_obs, batch_step = make_batch_fns(spec)
+    survive for scoring. The freeze follows the stage rewards, outside the
+    step: a frozen env's discarded step must not cache a reward into the
+    state it keeps. The step is `program` (an 'eval' StepProgram of this
+    batch and generator), else a new one: captured on the card unless
+    eager. Returns (final_states, total_reward (B,), done (B,), failure
+    (B,))."""
     B = start_state.stage.shape[0]
     dev = start_state.stage.device
-    use_mean = torch.ones(B, dtype=torch.bool, device=dev)
+    program = program or StepProgram(spec, model,
+                                     start_state.map(lambda x: x[0]), B,
+                                     'eval', generator, eager=eager)
     state = start_state
     total = torch.zeros(B, dtype=torch.float32, device=dev)
     for _ in range(num_steps):
-        obs = batch_obs(state)
-        action, _, _ = model.sample_action_logp_value(obs, generator,
-                                                      use_mean)
-        nxt, reward, _, info = batch_step(state, action)
-        nxt, reward = apply_stage_rewards(spec, nxt, reward, info)
+        out = program.run(state)
+        nxt, reward = apply_stage_rewards(spec, out['state'], out['reward'],
+                                          out['info'])
         frozen = state.done
         nxt = PlanState(*(
             torch.where(frozen.reshape((-1,) + (1,) * (new.dim() - 1)),

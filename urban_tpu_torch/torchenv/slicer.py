@@ -88,7 +88,7 @@ def mrr_of(pts):
     k = torch.argmin(torch.where(tied, theta, jg.BIG))
     any_ok = ok.any()
     uk = torch.where(any_ok, u[k],
-                     torch.tensor([1.0, 0.0], device=pts.device))
+                     jg.const((1.0, 0.0), torch.float32, pts.device))
     vk = torch.stack([-uk[1], uk[0]])
     pu = torch.where(mh, jg.dot2(hull, uk[None, :]), jg.BIG)
     pv = torch.where(mh, jg.dot2(hull, vk[None, :]), jg.BIG)
@@ -310,7 +310,7 @@ def l_shape_cut(ring, nv, p_c, p_1, p_2, e2_a, e2_b, pts, pt_alive,
     concave = interval_concave(ring, nv, p_1, p_c, p_3)
 
     cut_a = angle_cut(p_c, p_1, p_2)
-    four = torch.tensor(4, device=ring.device)
+    four = jg.const(4, torch.int64, ring.device)
     area_m = jg.ring_area(cut_a, four) * lp.cell ** 2
     ang = abs_angle_deg(p_1 - p_c, p_2 - p_c)
     thres = lp.search_max_length - lp.max_edge

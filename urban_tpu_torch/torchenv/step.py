@@ -238,16 +238,16 @@ def road_mask(spec: EnvSpec, state: PlanState) -> torch.Tensor:
 
 def _lu_params(spec: EnvSpec, c, land_use_t, like):
     """Per-type scalar constraints for the slicer."""
-    scalar = dict(dtype=torch.float32, device=like.device)
     return jsl.LuParams(
-        cell=torch.tensor(spec.cell_edge_length, **scalar),
+        cell=jg.const(spec.cell_edge_length, torch.float32, like.device),
         min_edge=c['min_edge'][land_use_t],
         max_edge=c['max_edge'][land_use_t],
         search_max_length=c['max_edge'][land_use_t]
         + spec.common_min_edge_length,
         search_max_area=c['max_area'][land_use_t],
         search_min_area=c['min_area'][land_use_t],
-        common_min_edge=torch.tensor(spec.common_min_edge_length, **scalar))
+        common_min_edge=jg.const(spec.common_min_edge_length, torch.float32,
+                                 like.device))
 
 
 # ---------------------------------------------------------------------------
@@ -1432,7 +1432,8 @@ def _node_features(spec: EnvSpec, state: PlanState):
     sc = torch.cat([state.poly_sc, half_s, half_p])
 
     one_hot = _one_hot(types, city_config.NUM_TYPES + 1)
-    xy = cents / torch.tensor([spec.grid_cols, spec.grid_rows], device=dev)
+    xy = cents / jg.const((spec.grid_cols, spec.grid_rows), torch.float32,
+                          dev)
     return torch.cat([
         one_hot, 2 * xy - 1,
         (2 * areas / spec.common_max_area - 1)[:, None],
@@ -1466,9 +1467,9 @@ def _numerical_and_current(spec: EnvSpec, state: PlanState):
                      2 * c['max_edge'][t] / spec.common_max_edge_length - 1]),
         torch.ones(3, device=dev)])
     dummy = torch.cat([
-        _one_hot(torch.tensor(city_config.FEASIBLE, device=dev), n_oh),
-        torch.tensor([0.0, 0.0, -1.0, -1.0, -1.0, -1.0, 0.0, 0.0, 0.0],
-                     device=dev)])
+        _one_hot(jg.const(city_config.FEASIBLE, torch.int64, dev), n_oh),
+        jg.const((0.0, 0.0, -1.0, -1.0, -1.0, -1.0, 0.0, 0.0, 0.0),
+                 torch.float32, dev)])
     cur = torch.where(in_lu, cur, dummy)
     stage_oh = _one_hot(state.stage.long(), 3)
     return numerical, cur, stage_oh, t
