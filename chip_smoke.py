@@ -19,12 +19,18 @@ actions, counters, final states and generator state) and a profiler
 trace of one replay, which must hold the forward kernel's launches; steps
 GPU and CPU environments in lockstep, then runs one full HLG PPO
 train_iteration (256 envs x 35 steps, 4 epochs of minibatch 256; its
-collect also stepped eagerly first, which must take the same actions) and
-a 16-env greedy evaluation. Then the road and
+collect also stepped eagerly first, which must take the same actions;
+its update replays one captured CUDA graph of the minibatch step,
+rl/update_program.py, with both kernels inside), then the same update
+stepped eagerly on the same trajectory by a twin trainer from the same
+seed (every parameter, Adam's state and every minibatch's stats equal;
+a profiler trace of one replay must hold both kernels' launches) and a
+16-env greedy evaluation. Then the road and
 concept rewards on the card against the CPU, a road-stage lockstep of the
 grid scenario on the card against the CPU, and one full grid PPO
 train_iteration with land use and roads (192 envs x 110 steps, 4 epochs of
-minibatch 256), whose road head must learn. The MLP encoder (no message
+minibatch 256), whose road head must learn, its update held against a
+twin trainer's eager update as the HLG one is. The MLP encoder (no message
 passing, no kernel) runs on the card against the CPU, forward and one PPO
 loss gradient. Then the grid's two-phase run_training (land use, the
 freeze of the best greedy plan, roads) of one iteration a phase, its
@@ -49,10 +55,14 @@ plan-scoring demo on the two-phase run's phase-2 best checkpoint and a
 published plan. The launch counts show that each path went through its
 kernels; a replay adds the launches its capture made.
 The tail, phases whose loops are host-bound while the card idles (the
-road and concept reward checks, the GA phase, the failure replay and
-both sides of the divergence replay), runs in child processes, each on
-a core of its own, beside the graft entry points; the divergence
-replay's CPU side starts after the HLG rollout.
+road and concept reward checks, the GA phase, the failure replay, both
+sides of the divergence replay, and two checks of the graphs against
+eager steps: two HLG trainers from one seed, one eager, over two
+iterations of collect, update and eval and a third collect, bit for bit;
+the GA's population rollout through its captured step against eager),
+runs in child processes, each on a core of its own, beside the graft
+entry points; the divergence replay's CPU side starts after the HLG
+rollout.
 
     python3 chip_smoke.py --tail sequential|concurrent
 
@@ -61,9 +71,10 @@ after another or in the child processes: what the children save.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 8 minutes on an H100, as fast as the host is.
+fails. About 9 minutes on an H100, as fast as the host is.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -130,6 +141,12 @@ GA_SEEDS = (0, 1, 2)
 DIVERGENCE_SEEDS = (100, 101)
 REPLAY_ENVS, REPLAY_STEPS, REPLAY_FAILURES, REPLAY_SUCCESSES = 64, 30, 3, 2
 REPLAY_BUDGET_S = 60.0
+# graph vs eager across iterations: two HLG trainers from one seed, one
+# stepping eagerly, TGE_ITERATIONS iterations of collect -> update ->
+# eval and one more collect, TRAIN_LEN steps (episodes end: the update
+# has rows to learn from); the batch cut to TGE_ENVS (4 minibatches of
+# 256 rows an epoch), as an eager step takes ~0.45 s whatever the batch
+TGE_ENVS, TGE_EVAL_ENVS, TGE_ITERATIONS = 32, 4, 2
 
 
 def phase(name, t0, **kv):
@@ -413,6 +430,252 @@ def rollout_graph_vs_eager(bench, kb, segment_ops, dev, B, layers):
             'instantiate_seconds': program.instantiate_seconds,
             'graph_pool_bytes': program.pool_bytes,
             'replay_trace': trace}
+
+
+@contextlib.contextmanager
+def keeping_update(trainer, args, epochs):
+    """Within the block, trainer.update keeps the trajectory and weights
+    it takes in `args`, and every update epoch appends its minibatch
+    stats to `epochs` (recording_epochs)."""
+    update = trainer.update
+
+    def keep(traj, iteration, weights=None):
+        args[:] = [traj, weights]
+        return update(traj, iteration, weights)
+    trainer.update = keep
+    try:
+        with recording_epochs(epochs):
+            yield
+    finally:
+        del trainer.update
+
+
+@contextlib.contextmanager
+def recording_epochs(into):
+    """Within the block, every UpdateProgram.epoch appends its minibatch
+    steps' stats, stacked (minibatches, len(STEP_KEYS)), to `into`."""
+    from urban_tpu_torch.rl.update_program import UpdateProgram
+    orig = UpdateProgram.epoch
+
+    def epoch(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        into.append(torch.stack(self.minibatch_stats))
+        return out
+    UpdateProgram.epoch = epoch
+    try:
+        yield
+    finally:
+        UpdateProgram.epoch = orig
+
+
+def adam_state(optimizer):
+    """Every state tensor of the optimizer (exp_avg, exp_avg_sq, step of
+    each parameter), in parameter order."""
+    return [v for group in optimizer.param_groups for p in group['params']
+            for _, v in sorted(optimizer.state[p].items())]
+
+
+def update_graph_vs_eager(bench, kb, trainer, update_args, graph_epochs,
+                          train, layers, run_dir, name, profile):
+    """A train phase's update (4 epochs of minibatch 256 on the `name`
+    trainer's iteration), which replayed the update program's captured
+    graph, against the same update stepped eagerly on the same trajectory
+    and weights by a twin trainer from the same seed (eager=True;
+    capturable Adam both): every parameter, every Adam state tensor
+    (exp_avg, exp_avg_sq, step), every minibatch's loss stats and
+    gradient norm and the epoch's means must be equal, and a replay must
+    count `layers` launches of each kernel. With `profile`, then one
+    profiler trace of a single replay must hold exactly `layers` events
+    of each kernel, and a trace of one more epoch through the graph and
+    one eager gives the update's device-busy and idle share. Returns what
+    it measured."""
+    dev = trainer.device
+    traj, weights = update_args
+    T = trainer.rollout_len
+    t = time.perf_counter()
+    twin = bench.make_trainer(trainer.num_envs, T, dev, seed=0, eval_envs=1,
+                              root_dir=run_dir, name=name, eager=True)
+    twin_seconds = time.perf_counter() - t
+    eager_epochs = []
+    with recording_epochs(eager_epochs):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        stats = twin.update(traj, 0, weights=weights)
+        torch.cuda.synchronize(dev)
+        t_eager = time.perf_counter() - t
+    mb = trainer.minibatch_size(T)
+    program, eager_program = (x.update_program(mb) for x in (trainer, twin))
+    params = list(zip(trainer.model.parameters(), twin.model.parameters()))
+    adam = list(zip(adam_state(trainer.optimizer),
+                    adam_state(twin.optimizer)))
+    checks = {
+        'graphed': program.graph is not None
+        and eager_program.graph is None,
+        'parameters': all(torch.equal(a, b) for a, b in params),
+        'adam_state': len(adam) == 3 * len(params)
+        and all(torch.equal(a, b) for a, b in adam),
+        'minibatch_stats': len(graph_epochs) == len(eager_epochs) == 4
+        and all(torch.equal(a, b) for a, b in zip(graph_epochs,
+                                                  eager_epochs)),
+        'epoch_means': train['losses'] == {k: float(v)
+                                           for k, v in stats.items()},
+        'replay_launches': program.launches == {
+            'segment_mean': layers, 'segment_mean_backward': layers}}
+    if not all(checks.values()):
+        raise AssertionError(f'update graph vs eager: {checks}')
+    steps = sum(len(e) for e in graph_epochs)
+    out = {'cfg': name, 'envs': trainer.num_envs, 'steps': T,
+           'minibatch_rows': mb, 'minibatch_steps': steps, 'checks': checks,
+           't_update_s': {'graph': train['t_update_s'], 'eager': t_eager},
+           'update_minibatch_steps_per_sec': {
+               'graph': steps / train['t_update_s'],
+               'eager': steps / t_eager},
+           'update_program': bench.program_stats(program),
+           'twin_trainer_seconds': twin_seconds}
+    if not profile:
+        return out
+    # one replay is one more Adam step of the trainer, as is each step of
+    # the profiled epochs below; the checks are done
+    traces = {k: kb.one_trace(program.graph.replay, kernel, reps=1)
+              for k, kernel in (('segment_mean', kb.FORWARD_KERNEL),
+                                ('segment_mean_backward',
+                                 kb.BACKWARD_KERNEL))}
+    if any(x['kernel_events'] != layers for x in traces.values()):
+        raise AssertionError(f'a replay\'s trace holds {traces}, not '
+                             f'{layers} events of each kernel')
+    rows = trainer.update_rows(traj, weights)
+    epoch = trainer.epoch_minibatches(T, 1)[0]
+    profiles = {}
+    for mode, prog in (('graph', program), ('eager', eager_program)):
+        prof = bench.device_profile(
+            lambda prog=prog: prog.epoch(rows[:9], *rows[9:14], epoch,
+                                         rows[14]), dev, len(epoch))
+        profiles[mode] = dict(
+            prof, device_busy_share=1.0 - prof['device_idle_share'])
+    return dict(out, replay_traces=traces, epoch_profiles=profiles)
+
+
+def train_graph_vs_eager(dev):
+    """Two HLG trainers from one seed, TGE_ENVS envs x TRAIN_LEN steps,
+    one replaying its captured collect, update and eval programs (which
+    share one graph pool; the collect graph reads the parameters that
+    Adam updates in place between its replays), the other eager=True:
+    TGE_ITERATIONS iterations of collect -> update -> eval, then one more
+    collect. Every sampled action, parameter, Adam state tensor, loss
+    stat and eval reward must be equal, bit for bit, and some rows must
+    train. Runs in a TAIL child."""
+    from urban_tpu_torch import bench
+    runs = {}
+    for mode in ('graph', 'eager'):
+        with tempfile.TemporaryDirectory() as run_dir:
+            tr = bench.make_trainer(TGE_ENVS, TRAIN_LEN, dev, seed=0,
+                                    eval_envs=TGE_EVAL_ENVS,
+                                    root_dir=run_dir, eager=mode == 'eager')
+            t0 = time.time()
+            its = []
+            for it in range(TGE_ITERATIONS):
+                st = tr.train_iteration(it)
+                its.append({
+                    'actions': tr.last_actions, 'losses': st.losses,
+                    'eval_reward': st.eval_reward,
+                    'best_reward': tr.best_reward,
+                    'success_frac': st.success_frac,
+                    'episodes': st.episodes,
+                    't_sample_s': st.sample_time,
+                    't_update_s': st.update_time,
+                    'params': [p.detach().clone()
+                               for p in tr.model.parameters()],
+                    'adam': [t.clone() for t in adam_state(tr.optimizer)]})
+            actions = tr.collect().actions.cpu().numpy()
+            torch.cuda.synchronize(dev)
+            runs[mode] = {
+                'iterations': its, 'last_actions': actions,
+                'seconds': time.time() - t0,
+                'graphed': sorted({str(k[0]): v.graph is not None
+                                   for k, v in tr.programs.items()}.items())}
+    g, e = runs['graph'], runs['eager']
+    checks = {'graphed': g['graphed'] == [('collect', True), ('eval', True),
+                                          ('update', True)]
+              and not any(v for _, v in e['graphed'])}
+    for i, (a, b) in enumerate(zip(g['iterations'], e['iterations'])):
+        checks[f'iteration_{i}'] = {
+            'actions': np.array_equal(a['actions'], b['actions']),
+            'losses': a['losses'] == b['losses'],
+            'eval_reward': a['eval_reward'] == b['eval_reward']
+            and a['best_reward'] == b['best_reward'],
+            'parameters': all(torch.equal(x, y) for x, y in zip(
+                a['params'], b['params'])),
+            'adam_state': all(torch.equal(x, y) for x, y in zip(
+                a['adam'], b['adam']))}
+    checks['last_collect_actions'] = np.array_equal(g['last_actions'],
+                                                    e['last_actions'])
+    trained = sum(it['success_frac'] for it in g['iterations'])
+    ok = all(v if isinstance(v, bool) else all(v.values())
+             for v in checks.values())
+    if not (ok and trained > 0):
+        raise AssertionError(f'train graph vs eager: {checks}, success '
+                             f'fractions {trained}')
+    return {'envs': TGE_ENVS, 'steps': TRAIN_LEN,
+            'iterations': TGE_ITERATIONS, 'eval_envs': TGE_EVAL_ENVS,
+            'checks': checks,
+            'per_iteration': [{k: it[k] for k in (
+                'losses', 'eval_reward', 'success_frac', 'episodes')}
+                for it in g['iterations']],
+            'seconds': {m: r['seconds'] for m, r in runs.items()},
+            't_sample_s': {m: [it['t_sample_s'] for it in r['iterations']]
+                           for m, r in runs.items()},
+            't_update_s': {m: [it['t_update_s'] for it in r['iterations']]
+                           for m, r in runs.items()}}
+
+
+def ga_graph_vs_eager(dev):
+    """make_ga_population_fitness on HLG (GA_CMP_GENES genes, GA_STEPS
+    steps) through its captured 'ga' step program against the same
+    program stepped eagerly, from one seed: greedy once and sampled twice
+    (the one generator reseeded before each call): equal fitness, and no
+    kernel launch. The seconds of each call, a GA generation's fitness.
+    Runs in a TAIL child."""
+    from urban_tpu_torch import bench
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl.ga import make_ga_population_fitness
+    _, spec, init = bench.setup('hlg', {}, 'cpu')
+    genes = np.random.default_rng(0).uniform(-5, 5,
+                                             size=(GA_CMP_GENES, 47))
+    segment_ops.reset_launches()
+    runs = {}
+    for mean_action, calls in ((True, 1), (False, 2)):
+        for mode in ('graph', 'eager'):
+            fit = make_ga_population_fitness(
+                spec, init, GA_STEPS, mean_action=mean_action, seed=0,
+                device=dev, eager=mode == 'eager')
+            fitness, seconds = [], []
+            for _ in range(calls):
+                t = time.time()
+                fitness.append(fit(genes))
+                seconds.append(time.time() - t)
+            (program,) = fit.programs.values()
+            runs['greedy' if mean_action else 'sampled', mode] = {
+                'fitness': fitness, 'seconds': seconds,
+                'graphed': program.graph is not None,
+                'program': bench.program_stats(program)}
+    checks = {}
+    for kind in ('greedy', 'sampled'):
+        g, e = runs[kind, 'graph'], runs[kind, 'eager']
+        checks[kind] = (g['graphed'] and not e['graphed'] and all(
+            np.array_equal(a, b) for a, b in zip(g['fitness'],
+                                                 e['fitness'])))
+    launches = dict(segment_ops.launches)
+    if not (all(checks.values()) and not any(launches.values())
+            and (runs['greedy', 'graph']['fitness'][0] > 0).any()):
+        raise AssertionError(f'GA graph vs eager: {checks}, launches '
+                             f'{launches}')
+    return {'genes': GA_CMP_GENES, 'steps': GA_STEPS, 'checks': checks,
+            'kernel_launches': launches,
+            'fitness': {f'{k}_{m}': [f.tolist() for f in r['fitness']]
+                        for (k, m), r in runs.items()},
+            'seconds_per_generation': {f'{k}_{m}': r['seconds']
+                                       for (k, m), r in runs.items()},
+            'program': runs['sampled', 'graph']['program']}
 
 
 def compare_road_reward(spec, states_cpu, dev, what):
@@ -1212,7 +1475,8 @@ def divergence_side(dev):
 TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('concept_checks', 'cuda'), ('ga_fitness', 'cuda'),
         ('ga_train', 'cuda'), ('divergence_side', 'cuda'),
-        ('divergence_side', 'cpu'))
+        ('divergence_side', 'cpu'), ('train_graph_vs_eager', 'cuda'),
+        ('ga_graph_vs_eager', 'cuda'))
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -1453,6 +1717,9 @@ def tail(dev, children, concurrent=True):
         got['ga_train:cuda']
     phase('ga_population_hlg', time.time() - s_fit - s_train, **fit, **train,
           parts_seconds={'fitness': s_fit, 'train_ga': s_train})
+    for name in ('train_graph_vs_eager', 'ga_graph_vs_eager'):
+        secs, rec = got[f'{name}:cuda']
+        phase(name, time.time() - secs, **rec)
     (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
         got['divergence_side:cpu']
     phase('divergence_card_vs_cpu', time.time() - s_card - s_cpu,
@@ -1704,7 +1971,9 @@ def smoke(t_start, children, keep_dir):
         eager_actions = traj.actions.cpu().numpy()
         t_eager = time.perf_counter() - t_eager
         del traj
-        train = bench.measure_train_iteration(trainer)  # resets the counts
+        update_args, graph_epochs = [], []
+        with keeping_update(trainer, update_args, graph_epochs):
+            train = bench.measure_train_iteration(trainer)  # resets counts
         if not np.array_equal(trainer.last_actions, eager_actions):
             raise AssertionError('the graphed collect\'s actions are not the '
                                  'eager collect\'s')
@@ -1730,6 +1999,15 @@ def smoke(t_start, children, keep_dir):
         if not train['overflow_gate_1pct_pass']:
             raise AssertionError(f'capacity gate: {train}')
         phase('train', t0, unchanged_parameters=unchanged, **train)
+
+        # ---- 7b. the update's captured graph against the eager loop ----
+        t0 = time.time()
+        uge = update_graph_vs_eager(bench, kb, trainer, update_args,
+                                    graph_epochs, train, layers, run_dir,
+                                    'hlg', profile=True)
+        del update_args, graph_epochs
+        torch.cuda.empty_cache()
+        phase('update_graph_vs_eager', t0, **uge)
 
         t0 = time.time()
         segment_ops.reset_launches()
@@ -1773,8 +2051,10 @@ def smoke(t_start, children, keep_dir):
                                  reward[fin]))
             return states, reward
         rollout_mod.apply_stage_rewards = keep_terminal
+        update_args, graph_epochs = [], []
         try:
-            grid = bench.measure_train_iteration(trainer)  # resets counts
+            with keeping_update(trainer, update_args, graph_epochs):
+                grid = bench.measure_train_iteration(trainer)  # resets
         finally:
             rollout_mod.apply_stage_rewards = apply
         grid_launches = grid['kernel_launches']
@@ -1800,6 +2080,15 @@ def smoke(t_start, children, keep_dir):
               road_successes=int(final.numel()),
               road_reward_range=[float(final.min()), float(final.max())],
               **grid)
+
+        # the grid update's graph against the eager loop (no profile)
+        t0 = time.time()
+        guge = update_graph_vs_eager(bench, kb, trainer, update_args,
+                                     graph_epochs, grid, layers, run_dir,
+                                     'grid', profile=False)
+        del update_args, graph_epochs
+        torch.cuda.empty_cache()
+        phase('grid_update_graph_vs_eager', t0, **guge)
 
     # the road reward on the collect's terminal states, card vs CPU, and
     # against the reward the collect gave them

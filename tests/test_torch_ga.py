@@ -11,7 +11,13 @@ the JAX package's on the CPU.
 - the greedy population fitness on HLG, 45 steps (as
   tests/test_ga_vmap.py): within 1e-5 of JAX's (f32 episode rewards);
 - the train_ga CLI on the CPU: one generation of 4, its GeoJSON export
-  read back.
+  read back;
+- the population's rollout through its step program (kind 'ga', the
+  counterpart of JAX's jitted run_population), with the generator
+  reseeded between two populations, against the eager loop it replaced
+  (kept here): the final states, the fitness accumulators and the
+  generator's state, bit for bit; its region runs no op that syncs the
+  host (tests/test_torch_program.py's SYNC_OPS), greedy and sampled.
 """
 import os
 
@@ -27,7 +33,11 @@ from urban_tpu_torch.models.baseline import ga_logits
 from urban_tpu_torch.rl import ga as tga
 from urban_tpu_torch.torchenv import road_fixtures
 from urban_tpu_torch.torchenv import state as tstate
-from urban_tpu_torch.torchenv.rollout import broadcast_state, make_batch_fns
+from urban_tpu_torch.torchenv.program import StepProgram
+from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
+                                              broadcast_state, eval_rollout,
+                                              make_batch_fns)
+from urban_tpu_torch.torchenv.state import FIELD_NAMES, PlanState
 
 torch.set_num_threads(1)
 
@@ -150,3 +160,93 @@ def test_train_ga_cli_exports_geojson(tmp_path):
         assert a.kind == b.kind
         np.testing.assert_allclose(a.coords, b.coords, rtol=0, atol=1e-9)
     assert os.path.exists(os.path.join(agent.cfg.model_dir, 'best.p'))
+
+
+PROGRAM_GENES, PROGRAM_STEPS = 3, 12
+
+
+@torch.no_grad()
+def ref_population_rollout(spec, init_state, genes, num_steps, mean_action,
+                           generator):
+    """The eager loop of make_ga_population_fitness before the step
+    program: (final state, fitness accumulator)."""
+    batch_obs, batch_step = make_batch_fns(spec)
+    P = genes.shape[0]
+    state = broadcast_state(init_state, P)
+    acc = torch.zeros(P, dtype=torch.float32)
+    for _ in range(num_steps):
+        obs = batch_obs(state)
+        lu_logits, rd_logits = ga_logits(obs, genes)
+        lu_l = torch.where(obs[6], lu_logits, -torch.inf)
+        rd_l = torch.where(obs[7], rd_logits, -torch.inf)
+        if mean_action:
+            lu, rd = torch.argmax(lu_l, dim=-1), torch.argmax(rd_l, dim=-1)
+        else:
+            lu = tga.categorical_sample(lu_l, generator)
+            rd = tga.categorical_sample(rd_l, generator)
+        action = torch.stack([lu, rd], dim=-1).to(torch.int32)
+        nxt, reward, _, info = batch_step(state, action)
+        nxt, reward = apply_stage_rewards(spec, nxt, reward, info)
+        frozen = state.done
+        state = PlanState(*(
+            torch.where(frozen.reshape((-1,) + (1,) * (new.dim() - 1)),
+                        old, new)
+            for old, new in ((getattr(state, n), getattr(nxt, n))
+                             for n in FIELD_NAMES)))
+        acc = acc + torch.where(frozen, 0.0, reward)
+    return state, acc
+
+
+def _ga_program(mean_action, generator):
+    _, spec, init = bench.setup('hlg', {}, 'cpu')
+    genes = torch.zeros(PROGRAM_GENES, GENES)
+    return spec, init, StepProgram(spec, tga.GenePolicy(genes, mean_action),
+                                   init, PROGRAM_GENES, 'ga', generator)
+
+
+@pytest.mark.parametrize('mean_action', [True, False])
+def test_ga_program_rollout_equals_the_eager_loop(mean_action):
+    """Two populations through one 'ga' program and one generator,
+    reseeded before each (as population_fitness reseeds it), against the
+    eager loop with a new generator of the same seed."""
+    gen = torch.Generator()
+    spec, init, program = _ga_program(mean_action, gen)
+    for seed in (5, 6):
+        genes = torch.as_tensor(np.random.default_rng(seed).uniform(
+            -5, 5, size=(PROGRAM_GENES, GENES)), dtype=torch.float32)
+        program.model.genes.copy_(genes)
+        gen.manual_seed(seed)
+        final, total, _, _ = eval_rollout(
+            spec, program.model, broadcast_state(init, PROGRAM_GENES), gen,
+            PROGRAM_STEPS, program=program)
+        ref_gen = torch.Generator().manual_seed(seed)
+        ref_final, ref_total = ref_population_rollout(
+            spec, init, genes, PROGRAM_STEPS, mean_action, ref_gen)
+        assert torch.equal(total, ref_total)
+        start = broadcast_state(init, PROGRAM_GENES)
+        assert sum(not torch.equal(getattr(final, n), getattr(start, n))
+                   for n in FIELD_NAMES) > 5       # the plans moved
+        for n in FIELD_NAMES:
+            assert torch.equal(getattr(final, n), getattr(ref_final, n)), n
+        assert torch.equal(gen.get_state(), ref_gen.get_state())
+
+
+@pytest.mark.parametrize('mean_action', [True, False])
+def test_ga_program_region_has_no_host_sync(mean_action):
+    """After one step (the warm-up), the 'ga' region (build_obs,
+    ga_logits with its static distances, the masked argmax or sample,
+    env_step) runs no op that reads a tensor on the host or copies host
+    data to the device."""
+    from test_torch_program import SYNC_OPS, _OpLog
+    gen = torch.Generator().manual_seed(0)
+    spec, init, program = _ga_program(mean_action, gen)
+    program.model.genes.copy_(torch.as_tensor(
+        np.random.default_rng(1).uniform(-5, 5, size=(PROGRAM_GENES, GENES)),
+        dtype=torch.float32))
+    program.run(broadcast_state(init, PROGRAM_GENES))
+    log = _OpLog()
+    with log:
+        out = program._step()
+    assert out['action'].shape == (PROGRAM_GENES, 2)
+    assert len(log.ops) > 1000
+    assert not [op for op in log.ops if op in SYNC_OPS]

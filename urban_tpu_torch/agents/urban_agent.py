@@ -39,7 +39,8 @@ from urban_tpu_torch.models.model import (create_mlp_model, create_sgnn_model,
 from urban_tpu_torch.rl.gae import estimate_advantages_np
 from urban_tpu_torch.rl.ppo import (STAT_KEYS, PPOConfig,
                                     fixed_log_probs_and_values,
-                                    make_optimizer, ppo_update_step)
+                                    load_optimizer_state, make_optimizer,
+                                    ppo_update_step)
 from urban_tpu_torch.utils.checkpoint import to_cpu
 
 # dtypes of the host observation's nine arrays on the device (the SGNN's
@@ -201,7 +202,7 @@ class UrbanPlanningAgent:
         if self.model is not None:
             self.model.load_state_dict(model_cp['params'])
         if self.optimizer is not None and model_cp.get('opt_state') is not None:
-            self.optimizer.load_state_dict(model_cp['opt_state'])
+            load_optimizer_state(self.optimizer, model_cp['opt_state'])
         self.loss_iter = model_cp['loss_iter']
         if restore_best_rewards:
             self.best_rewards = model_cp.get('best_rewards', self.best_rewards)

@@ -5,14 +5,17 @@ capacities and model as the JAX package's root bench.py; and, with
 trainer's capacities). --cfg names the scenario (hlg, grid, dhm, ...).
 
     python -m urban_tpu_torch.bench --num_envs 256 --num_steps 30 --device cuda
-    python -m urban_tpu_torch.bench --train --num_envs 256 --rollout_len 50
+    python -m urban_tpu_torch.bench --train --num_envs 256 --rollout_len 50 \
+        [--eager]
     python -m urban_tpu_torch.bench --train --cfg grid --num_envs 192 \
         --rollout_len 120
     python -m urban_tpu_torch.bench --profile --num_steps 3 [--eager]
 
 On the card each step replays one captured CUDA graph of the batched step
-(torchenv/program.py), the trainer's collect and eval too; --eager steps
-the same ops one launch at a time. --profile traces a few steps: with the
+(torchenv/program.py), the trainer's collect and eval too, and each of the
+update's minibatch steps one captured graph of its forward, backward,
+clip and Adam step (rl/update_program.py); --eager steps the same ops one
+launch at a time. --profile traces a few steps: with the
 graph, the host's launches a step, device busy and the idle share; with
 --eager, the per-layer split (observation, policy, env step, stage
 rewards).
@@ -191,10 +194,11 @@ def run_failure_replay(num_envs: int = 256, num_steps: int = 30,
 
 def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                  seed: int = 0, eval_envs: int = 16, root_dir: str = None,
-                 name: str = 'hlg'):
+                 name: str = 'hlg', eager: bool = False):
     """The PPO trainer of scenario `name` at the JAX trainer's own
     capacities; its run logs go under root_dir (default: the temp
-    directory)."""
+    directory). eager: collect, eval and update step eagerly on the card
+    instead of replaying their graphs."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.rl.trainer import Trainer
     set_precision_flags()
@@ -202,15 +206,15 @@ def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                                         'urban_tpu_torch')
     cfg = Config(name, seed, tmp=False, root_dir=root_dir)
     return Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
-                   eval_envs=eval_envs, device=device)
+                   eval_envs=eval_envs, device=device, eager=eager)
 
 
 def measure_train_iteration(trainer) -> dict:
     """One train_iteration (collect + update, no eval): its phase times,
     the rates, the kernel launches of the iteration and the peak device
-    memory; on the card, what the collect program's first capture took
-    (set-up inside t_sample on the iteration that makes it) and its
-    graph's pool."""
+    memory; on the card, what the collect and update programs' first
+    captures took (set-up inside t_sample and t_update on the iteration
+    that makes them) and their graphs' pool."""
     from urban_tpu_torch.ops import segment_ops
     device = trainer.device
     build_kernels(device)
@@ -245,13 +249,15 @@ def measure_train_iteration(trainer) -> dict:
             if device.type == 'cuda' else None),
         'collect_program': program_stats(trainer.program(
             'collect', trainer.local_envs)),
+        'update_program': program_stats(trainer.update_program(
+            trainer.minibatch_size(trainer.rollout_len))),
     }
 
 
-def program_stats(program: StepProgram) -> dict:
-    """Whether a step program is a captured graph, and the seconds of its
-    warm-up, capture and instantiation and its pool's bytes (None when
-    eager)."""
+def program_stats(program) -> dict:
+    """Whether a step or update program is a captured graph, and the
+    seconds of its warm-up, capture and instantiation and its pool's bytes
+    (None when eager)."""
     return {'graphed': program.graph is not None,
             'warmup_seconds': program.warmup_seconds,
             'capture_seconds': program.capture_seconds,
@@ -260,10 +266,12 @@ def program_stats(program: StepProgram) -> dict:
 
 
 def run_train_bench(num_envs: int = 256, rollout_len: int = 50,
-                    device='cuda', seed: int = 0, name: str = 'hlg') -> dict:
-    """One PPO train_iteration of scenario `name`'s trainer (no eval)."""
-    return measure_train_iteration(make_trainer(num_envs, rollout_len,
-                                                device, seed, name=name))
+                    device='cuda', seed: int = 0, name: str = 'hlg',
+                    eager: bool = False) -> dict:
+    """One PPO train_iteration of scenario `name`'s trainer (no eval),
+    through the captured programs, or eagerly."""
+    return measure_train_iteration(make_trainer(
+        num_envs, rollout_len, device, seed, name=name, eager=eager))
 
 
 @torch.no_grad()
@@ -281,8 +289,6 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     (runtime calls that launch a kernel, a graph, a copy or a memset), the
     device's kernels a step and the kernels that take the most device
     time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
                                                   reset_done)
     set_precision_flags()
@@ -330,17 +336,41 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     layers = {}
     for _ in range(num_steps):
         state = step(state, layers)
+    states = [state]
+
+    def steps():
+        for _ in range(num_steps):
+            states[0] = step(states[0])
+    return {
+        'device': torch.cuda.get_device_name(device), 'cfg': name,
+        'num_envs': num_envs, 'warmup_steps': warmup, 'steps': num_steps,
+        **program_stats(program),
+        'layer_seconds_per_step': {k: v / num_steps
+                                   for k, v in layers.items()},
+        **device_profile(steps, device, num_steps)}
+
+
+def device_profile(fn, device, steps: int) -> dict:
+    """A torch.profiler trace of fn(), which runs `steps` steps on a CUDA
+    device: the profiled wall seconds, the device's busy seconds (the sum
+    of its kernels', copies' and memsets' durations) and idle share, the
+    host's launches (runtime calls that launch a kernel, a graph, a copy
+    or a memset) and the device's kernels, each a step, and the kernels
+    that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(num_steps):
-            state = step(state)
+        fn()
         _sync(device)
         wall = time.perf_counter() - t0
     events = prof.events()
+    # device events: kernels, copies, memsets; not the user annotations
+    # (an optimizer step's range) that the profiler also puts there
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     launches = [e for e in events
                 if e.device_type == torch.autograd.DeviceType.CPU
                 and e.name.startswith(('cuda', 'cu'))
@@ -354,19 +384,14 @@ def profile_rollout(num_envs: int = 256, num_steps: int = 3, device='cuda',
     for e in launches:
         by_call[e.name] = by_call.get(e.name, 0) + 1
     return {
-        'device': torch.cuda.get_device_name(device), 'cfg': name,
-        'num_envs': num_envs, 'warmup_steps': warmup, 'steps': num_steps,
-        **program_stats(program),
-        'layer_seconds_per_step': {k: v / num_steps
-                                   for k, v in layers.items()},
-        'profiled_wall_seconds_per_step': wall / num_steps,
-        'device_busy_seconds_per_step': busy_us * 1e-6 / num_steps,
+        'profiled_wall_seconds_per_step': wall / steps,
+        'device_busy_seconds_per_step': busy_us * 1e-6 / steps,
         'device_idle_share': 1.0 - busy_us * 1e-6 / wall,
-        'host_launches_per_step': len(launches) / num_steps,
-        'host_launches_by_call_per_step': {k: v / num_steps
+        'host_launches_per_step': len(launches) / steps,
+        'host_launches_by_call_per_step': {k: v / steps
                                            for k, v in by_call.items()},
-        'device_kernels_per_step': len(kernels) / num_steps,
-        'top_kernels_ms_per_step': {k[:80]: v * 1e-3 / num_steps
+        'device_kernels_per_step': len(kernels) / steps,
+        'top_kernels_ms_per_step': {k[:80]: v * 1e-3 / steps
                                     for k, v in top},
     }
 
@@ -388,9 +413,9 @@ def main() -> None:
     ap.add_argument('--warmup', type=int, default=1,
                     help='--profile: steps before the profiled ones')
     ap.add_argument('--eager', action='store_true',
-                    help='the rollout and --profile: step eagerly instead '
-                    'of replaying the captured step (with --profile: the '
-                    'per-layer split)')
+                    help='step eagerly instead of replaying the captured '
+                    'step (and with --train, the update\'s minibatch '
+                    'step; with --profile: the per-layer split)')
     ap.add_argument('--replay_budget_s', type=float, default=float(
         os.environ.get('BENCH_REPLAY_BUDGET_S', 300)),
                     help='host seconds for the failure replay (default: '
@@ -400,7 +425,7 @@ def main() -> None:
     a = ap.parse_args()
     if a.train:
         out = run_train_bench(a.num_envs, a.rollout_len, a.device, a.seed,
-                              a.cfg)
+                              a.cfg, a.eager)
     elif a.profile:
         out = profile_rollout(a.num_envs, a.num_steps, a.device, a.seed,
                               a.cfg, a.warmup, a.eager)

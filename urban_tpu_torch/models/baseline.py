@@ -38,17 +38,16 @@ def ga_logits(obs, gene: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         nodes, 2, cur_type[:, None, None].expand(-1, nodes.shape[1], 1)
     )[..., 0] == 1.0)
     n_same = same.sum(dim=-1, keepdim=True)
-    # the distances to the K = max(n_same) nodes of the type only, not to
-    # all N: each row's same-type nodes first, in slot order
-    k = max(int(n_same.max()), 1)
-    first = torch.argsort((~same).to(torch.uint8), dim=-1, stable=True)[:, :k]
-    sxy = torch.gather(xy, 1, first[..., None].expand(-1, -1, 2))
-    diff = exy[:, :, None, :] - sxy[:, None, :, :]
-    d = torch.sqrt((diff * diff).sum(dim=-1))                  # (P, E, K)
+    # the distances to all N nodes, those of other types masked out (JAX's
+    # form): a static shape, without the host sync that cutting them to
+    # the nodes of the type would need, so that a CUDA graph holds it
+    dx = exy[:, :, None, 0] - xy[:, None, :, 0]
+    dy = exy[:, :, None, 1] - xy[:, None, :, 1]
+    d = torch.sqrt(dx * dx + dy * dy)                          # (P, E, N)
     dist_same = torch.where(
         n_same > 0,
-        torch.where(torch.gather(same, 1, first)[:, None, :], d, 0.0).sum(
-            dim=-1) / torch.clamp_min(n_same, 1), 0.0)
+        torch.where(same[:, None, :], d, 0.0).sum(dim=-1)
+        / torch.clamp_min(n_same, 1), 0.0)
     ef = torch.cat([ef, dist_same[..., None]], dim=-1)
     lu = (ef * gene[:, None, :half]).sum(dim=-1)
     lu = torch.where(edge_mask, lu, lu.amin(dim=-1, keepdim=True) - 1.0)

@@ -6,7 +6,8 @@ mean-aggregated back to nodes with a residual connection, then a
 single-query attention of the current land use over all nodes. The
 edge-to-node aggregation always goes through
 ``urban_tpu_torch.ops.segment_ops.segment_mean`` (the Hopper kernel on a
-CUDA tensor); the gather is plain f32 indexing.
+CUDA tensor); the gather is plain f32 indexing, with a gradient that
+sums in a fixed order (``endpoint_rows``).
 
 MLPStateEncoder: the ablation without message passing; each edge takes the
 features of its feasible-side endpoint, and no segment mean runs.
@@ -51,11 +52,17 @@ class MLP(nn.Module):
 
 def endpoint_rows(x, edges):
     """(B, E, D) rows of x (B, N, D) at each edge's first and second
-    endpoint."""
-    n, d = x.shape[-2], x.shape[-1]
+    endpoint. One index into the flattened rows: its gradient is an
+    index_put_ with accumulation, which sums a node's contributions in
+    one fixed order on the card (sorted by index), where torch.gather's
+    scatter_add_ adds them with atomics in an order that changes from run
+    to run; the update must give the same bits each time it runs, and
+    its captured graph the eager loop's."""
+    b, n, d = x.shape
     ed = edges.long().clamp(0, n - 1)
-    return (torch.gather(x, 1, ed[..., 0:1].expand(-1, -1, d)),
-            torch.gather(x, 1, ed[..., 1:2].expand(-1, -1, d)))
+    base = (torch.arange(b, device=x.device) * n)[:, None, None]
+    rows = x.reshape(b * n, d)[ed + base]                   # (B, E, 2, D)
+    return rows[..., 0, :], rows[..., 1, :]
 
 
 def first_argmax(x):

@@ -5,8 +5,9 @@ Drop-in replacement for the pygad configuration the reference uses
 single-point crossover, random per-gene mutation, keep-parents elitism, and
 a saturate-N stop criterion. Fitness evaluation is delegated to a callable
 (greedy env episodes); ``make_ga_population_fitness`` evaluates a whole
-population at once on the batched environment (one env per gene). ``GA``
-and ``GAConfig`` are the JAX package's, which are pure numpy.
+population at once on the batched environment (one env per gene), through
+a captured step program on the card. ``GA`` and ``GAConfig`` are the JAX
+package's, which are pure numpy.
 """
 from __future__ import annotations
 
@@ -18,9 +19,8 @@ import torch
 
 from urban_tpu_torch.models.baseline import ga_logits
 from urban_tpu_torch.models.policy import categorical_sample
-from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
-                                              broadcast_state, make_batch_fns)
-from urban_tpu_torch.torchenv.state import FIELD_NAMES, PlanState
+from urban_tpu_torch.torchenv.program import StepProgram
+from urban_tpu_torch.torchenv.rollout import broadcast_state, eval_rollout
 
 
 @dataclass
@@ -105,53 +105,69 @@ class GA:
         return self.population[idx], float(fitness[idx]), idx
 
 
+class GenePolicy:
+    """The GA's linear gene policy (models.baseline.ga_logits) in the place
+    of a step program's model: env p is scored by row p of `genes` (P, G),
+    a static buffer the caller copies each population into, and takes the
+    argmax of its masked logits (mean_action) or a sample of them from
+    the step's generator (land use first, then the road). The program's
+    use_mean is not read: mean_action decides."""
+
+    def __init__(self, genes: torch.Tensor, mean_action: bool):
+        self.genes, self.mean_action = genes, mean_action
+
+    def sample_action_logp_value(self, obs, generator, use_mean):
+        lu_logits, rd_logits = ga_logits(obs, self.genes)
+        lu_l = torch.where(obs[6], lu_logits, -torch.inf)
+        rd_l = torch.where(obs[7], rd_logits, -torch.inf)
+        if self.mean_action:
+            lu, rd = torch.argmax(lu_l, dim=-1), torch.argmax(rd_l, dim=-1)
+        else:
+            lu = categorical_sample(lu_l, generator)
+            rd = categorical_sample(rd_l, generator)
+        return torch.stack([lu, rd], dim=-1).to(torch.int32), None, None
+
+
 def make_ga_population_fitness(spec, init_state, num_steps: int,
                                mean_action: bool = False, seed: int = 0,
-                               device='cuda'):
+                               device='cuda', eager: bool = False):
     """Whole-population fitness on the batched environment, on `device`
     (the card unless the caller asks for the CPU): env i is driven by gene
-    i's linear policy (models.baseline.ga_logits) for num_steps steps and
-    frozen once done, with the stage rewards applied as the rollout
-    applies them; the fitness is the episode's reward, -1.0 for an
-    unfinished or failed episode. With mean_action the actions are the
-    argmax; otherwise they are sampled, from a torch.Generator seeded
-    seed + (the call's number). Returns population (P, G) -> fitness (P,)
-    as numpy."""
+    i's linear policy (GenePolicy) for num_steps steps and frozen once
+    done, with the stage rewards applied as the rollout applies them (the
+    loop of eval_rollout); the fitness is the episode's reward, -1.0 for
+    an unfinished or failed episode. With mean_action the actions are the
+    argmax; otherwise they are sampled, from one torch.Generator reseeded
+    seed + (the call's number) before each call. The step is a 'ga'
+    StepProgram, one for each population size, made on first use: on the
+    card a captured CUDA graph of build_obs, ga_logits, the masked argmax
+    or sample and env_step (the counterpart of JAX's jitted
+    run_population), replayed once a step; the stage rewards and the
+    freeze run eagerly between replays. eager=True steps it eagerly on the
+    card too. Returns population (P, G) -> fitness (P,) as numpy."""
     device = torch.device(device)
     init_state = init_state.map(lambda x: x.to(device))
-    batch_obs, batch_step = make_batch_fns(spec)
+    generator = torch.Generator(device=device)
+    programs = {}
     calls = [seed]
 
     @torch.no_grad()
     def population_fitness(population: np.ndarray) -> np.ndarray:
         calls[0] += 1
-        generator = torch.Generator(device=device).manual_seed(calls[0])
+        generator.manual_seed(calls[0])
         genes = torch.as_tensor(np.asarray(population), dtype=torch.float32,
                                 device=device)
         P = genes.shape[0]
-        state = broadcast_state(init_state, P)
-        acc = torch.zeros(P, dtype=torch.float32, device=device)
-        for _ in range(num_steps):
-            obs = batch_obs(state)
-            lu_logits, rd_logits = ga_logits(obs, genes)
-            lu_l = torch.where(obs[6], lu_logits, -torch.inf)
-            rd_l = torch.where(obs[7], rd_logits, -torch.inf)
-            if mean_action:
-                lu, rd = torch.argmax(lu_l, dim=-1), torch.argmax(rd_l, dim=-1)
-            else:
-                lu = categorical_sample(lu_l, generator)
-                rd = categorical_sample(rd_l, generator)
-            action = torch.stack([lu, rd], dim=-1).to(torch.int32)
-            nxt, reward, _, info = batch_step(state, action)
-            nxt, reward = apply_stage_rewards(spec, nxt, reward, info)
-            frozen = state.done
-            state = PlanState(*(
-                torch.where(frozen.reshape((-1,) + (1,) * (new.dim() - 1)),
-                            old, new)
-                for old, new in ((getattr(state, n), getattr(nxt, n))
-                                 for n in FIELD_NAMES)))
-            acc = acc + torch.where(frozen, 0.0, reward)
-        ok = state.done & ~state.failure
-        return torch.where(ok, acc, -1.0).cpu().numpy()
+        if genes.shape not in programs:
+            programs[genes.shape] = StepProgram(
+                spec, GenePolicy(torch.zeros_like(genes), mean_action),
+                init_state, P, 'ga', generator, eager=eager)
+        program = programs[genes.shape]
+        program.model.genes.copy_(genes)
+        _, total, done, failure = eval_rollout(
+            spec, program.model, broadcast_state(init_state, P), generator,
+            num_steps, program=program)
+        return torch.where(done & ~failure, total, -1.0).cpu().numpy()
 
+    population_fitness.programs = programs
     return population_fitness

@@ -4,9 +4,13 @@ Clipped surrogate on exploration rows only (``exps`` weights the surrogate
 and the entropy; greedy rows still train the value), value MSE weighted by
 ``valid`` (the episode success weights), entropy bonus, global-norm
 gradient clipping, Adam. The loss runs on fixed-size minibatches with the
-filters as weights, not boolean indexing, as in the JAX package; where the
-JAX package scans over the minibatches of an epoch inside one jit, the
-port loops over them in Python.
+filters as weights, not boolean indexing, as in the JAX package. Where the
+JAX package scans over the minibatches of an epoch inside one jit,
+``ppo_update_epoch`` loops over them in Python; on the card the trainer
+replays one captured minibatch step instead (``rl/update_program.py``),
+which the same ``ppo_update_step`` makes. On CUDA parameters the
+optimizer is capturable: its step counts and bias corrections stay on the
+device, so that a graph can hold the step.
 
 With a process group (data parallelism, urban_tpu_torch.parallel.mesh)
 each rank steps on its rows of the minibatch: the loss all-reduces its
@@ -39,12 +43,34 @@ class PPOConfig(NamedTuple):
 
 def make_optimizer(params, cfg: PPOConfig) -> torch.optim.Optimizer:
     """Adam (AdamW where weight decay is set) with the config's lr and eps;
-    the global-norm clip is applied by gradient_step before each step."""
+    the global-norm clip is applied by gradient_step before each step.
+    Capturable where the parameters are on CUDA (torch refuses it on the
+    CPU): the step stays on the device, as a CUDA graph needs."""
     params = list(params)
+    capturable = bool(params) and all(p.device.type == 'cuda'
+                                      for p in params)
+    kw = dict(lr=cfg.lr, eps=cfg.eps, capturable=capturable)
     if cfg.weight_decay > 0:
-        return torch.optim.AdamW(params, lr=cfg.lr, eps=cfg.eps,
-                                 weight_decay=cfg.weight_decay)
-    return torch.optim.Adam(params, lr=cfg.lr, eps=cfg.eps)
+        return torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kw)
+    return torch.optim.Adam(params, **kw)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state_dict: dict) -> None:
+    """optimizer.load_state_dict, keeping the optimizer's own capturable
+    setting, which the saved param groups would replace: a checkpoint
+    written on the card loads on the CPU and back. Adam's step counts go
+    where that setting keeps them (the device where capturable, else the
+    CPU)."""
+    capturable = [g['capturable'] for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, cap in zip(optimizer.param_groups, capturable):
+        group['capturable'] = cap
+        for p in group['params']:
+            state = optimizer.state.get(p, {})
+            if 'step' in state:
+                state['step'] = state['step'].to(
+                    p.device if cap else 'cpu', torch.float32)
 
 
 @torch.no_grad()

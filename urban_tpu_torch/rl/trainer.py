@@ -9,7 +9,11 @@ the segment-mean kernel and its backward kernel on a CUDA device), then
 greedy evaluation episodes with best-plan tracking (``eval_agent``).
 Collect and eval each step through a ``StepProgram`` that the trainer
 keeps (``program``): on the card a captured CUDA graph of the whole
-batched step, replayed once a step. The minibatch permutation comes from
+batched step, replayed once a step. On one device the update's
+minibatch steps go through an ``UpdateProgram`` (``update_program``): on
+the card a captured CUDA graph of the forward, backward, clip and Adam
+step, replayed once a minibatch. ``eager=True`` steps all three eagerly
+on the card too. The minibatch permutation comes from
 ``np.random.default_rng(seed + iteration)``, as in the JAX trainer, so
 both take the same minibatches; the rollout and sampling noise comes
 from an explicit ``torch.Generator``.
@@ -30,7 +34,10 @@ device. The random stream does not depend on N: every draw is made at
 the whole batch's size and each rank keeps its rows (``RowShard``). The
 update takes the one-device minibatches (the same permutation on every
 rank), each rank the rows of its own environments, with the gradients
-all-reduced; every batch-wide statistic is reduced over the ranks. The
+all-reduced, stepped eagerly: a rank's rows change from minibatch to
+minibatch and the all-reduce cannot be captured (the JAX trainer, too,
+scans an epoch only without a mesh). Every batch-wide statistic is
+reduced over the ranks. The
 greedy eval runs whole on every rank, so every rank holds the same best
 plan and freezes it alike; rank 0 alone writes logs, TensorBoard and
 checkpoints, and after each iteration the ranks' parameters must be
@@ -69,7 +76,9 @@ from urban_tpu_torch.ops import segment_ops
 from urban_tpu_torch.parallel.mesh import (Mesh, check_replicated,
                                            local_minibatch_rows, make_mesh,
                                            replicate, spawn, visible_devices)
-from urban_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update_epoch
+from urban_tpu_torch.rl.ppo import (PPOConfig, load_optimizer_state,
+                                    make_optimizer, ppo_update_epoch)
+from urban_tpu_torch.rl.update_program import UpdateProgram
 from urban_tpu_torch.torchenv.program import StepProgram
 from urban_tpu_torch.torchenv.rollout import (batched_gae, broadcast_state,
                                               episode_success_weights,
@@ -140,10 +149,13 @@ class Trainer:
                  rollout_len: Optional[int] = None, eval_envs: int = 16,
                  device='cuda', use_tensorboard: bool = False,
                  keep_boundaries: bool = False, encoder: str = 'sgnn',
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, eager: bool = False):
         """mesh: this rank's data-parallel mesh (make_mesh); its device
-        replaces `device`. Without one the trainer runs on one device."""
+        replaces `device`. Without one the trainer runs on one device.
+        eager: collect, eval and update step eagerly on the card instead
+        of replaying their captured graphs (the graphs' reference)."""
         self.cfg = cfg
+        self.eager = eager
         self.mesh = mesh if mesh is not None else make_mesh(1, device)
         self.device = self.mesh.device
         self.encoder = encoder
@@ -184,9 +196,10 @@ class Trainer:
         self._reset_env_batch()
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
-        # the step programs of collect and eval (program()), which share
-        # one graph memory pool on the card
-        self.programs: Dict[tuple, StepProgram] = {}
+        # the step programs of collect and eval (program()) and the update
+        # programs (update_program()), which share one graph memory pool on
+        # the card: they never replay at the same time
+        self.programs: Dict[tuple, object] = {}
         self.graph_pool = None
         self.best_reward = -1000.0
         self.best_plan_state = None       # plan_state_to_numpy of one env
@@ -241,15 +254,31 @@ class Trainer:
             if kind == 'collect' and self.mesh.world_size > 1:
                 generator = RowShard(generator, self.env_start,
                                      self.num_envs)
-            if self.graph_pool is None and self.device.type == 'cuda':
-                self.graph_pool = torch.cuda.graph_pool_handle()
             self.programs[key] = StepProgram(
                 self.spec, self.model, self.init_state, batch, kind,
-                generator, noise_rate, pool=self.graph_pool)
+                generator, noise_rate, eager=self.eager, pool=self._pool())
         return self.programs[key]
 
+    def update_program(self, batch: int) -> UpdateProgram:
+        """The update program of `batch`-row minibatches, made on first use
+        and kept, keyed on all that its capture holds: spec, model,
+        optimizer and batch (the optimizer's state, which load_checkpoint
+        replaces, drops it there)."""
+        key = ('update', self.spec, self.model, self.optimizer, batch)
+        if key not in self.programs:
+            self.programs[key] = UpdateProgram(
+                self.model, self.optimizer, self.ppo_cfg, batch,
+                eager=self.eager, pool=self._pool())
+        return self.programs[key]
+
+    def _pool(self):
+        if self.graph_pool is None and self.device.type == 'cuda':
+            self.graph_pool = torch.cuda.graph_pool_handle()
+        return self.graph_pool
+
     def drop_programs(self) -> None:
-        """Free the step programs and their graph memory pool."""
+        """Free the step and update programs and their graph memory
+        pool."""
         self.programs.clear()
         self.graph_pool = None
 
@@ -266,6 +295,18 @@ class Trainer:
         """num_optim_epoch shuffled epochs of PPO minibatch steps on the
         trajectory (this rank's rows of each one-device minibatch);
         returns the last epoch's mean loss stats."""
+        rows = self.update_rows(traj, weights)
+        for minibatches in self.epoch_minibatches(traj.rewards.shape[0],
+                                                  iteration):
+            stats = self.update_epoch(rows, minibatches)
+        return stats
+
+    def update_rows(self, traj, weights=None):
+        """The update's rows of the trajectory, flattened (T x B leading):
+        the 9 observation tensors, actions, returns, advantages, fixed
+        log-probs, exps (the success weights x the exploration indicator,
+        for the surrogate and entropy) and valid (the success weights, for
+        the value loss). Also sets last_value_mc_rms."""
         cfg, mesh = self.cfg, self.mesh
         T, B = traj.rewards.shape
         if weights is None:
@@ -286,33 +327,46 @@ class Trainer:
             advantages = normalize_advantages(advantages, weights,
                                               mesh.group)
         n = T * B
-        flat_obs = tuple(o.reshape((n,) + o.shape[2:]) for o in traj.obs)
-        actions = traj.actions.reshape(n, 2)
-        returns = returns.reshape(n, 1)
-        advantages = advantages.reshape(n, 1)
-        fixed_lp = traj.log_probs.reshape(n, 1)
-        # success filter x exploration indicator for the surrogate and
-        # entropy; the success filter alone for the value loss
-        valid = weights.reshape(n)
-        exps = (traj.exps * weights).reshape(n)
+        return (*(o.reshape((n,) + o.shape[2:]) for o in traj.obs),
+                traj.actions.reshape(n, 2), returns.reshape(n, 1),
+                advantages.reshape(n, 1), traj.log_probs.reshape(n, 1),
+                (traj.exps * weights).reshape(n), weights.reshape(n))
 
-        # the one-device run's minibatches over all num_envs envs
+    def minibatch_size(self, T: int) -> int:
+        """The one-device run's minibatch rows over all num_envs envs."""
+        return min(self.cfg.mini_batch_size, T * self.num_envs)
+
+    def epoch_minibatches(self, T: int, iteration: int):
+        """Each epoch's minibatches of a T-step window: this rank's rows of
+        each one-device minibatch (a permutation from
+        np.random.default_rng(seed + iteration), as in the JAX trainer),
+        as device index tensors; their row counts go to
+        last_minibatch_rows."""
         n_all = T * self.num_envs
-        mb = min(cfg.mini_batch_size, n_all)
+        mb = self.minibatch_size(T)
         num_mb = max(n_all // mb, 1)
-        rng = np.random.default_rng(cfg.seed + iteration)
+        rng = np.random.default_rng(self.cfg.seed + iteration)
         self.last_minibatch_rows = []
-        for _ in range(cfg.num_optim_epoch):
+        epochs = []
+        for _ in range(self.cfg.num_optim_epoch):
             rows = local_minibatch_rows(rng.permutation(n_all), num_mb, mb,
-                                        self.num_envs, mesh)
+                                        self.num_envs, self.mesh)
             counts = [len(r) for r in rows]
             self.last_minibatch_rows += counts
-            stats = ppo_update_epoch(
-                self.model, self.optimizer, self.ppo_cfg, flat_obs, actions,
-                returns, advantages, fixed_lp, exps, torch.split(
-                    torch.as_tensor(np.concatenate(rows), device=self.device),
-                    counts), valid, mesh.group)
-        return stats
+            epochs.append(torch.split(torch.as_tensor(
+                np.concatenate(rows), device=self.device), counts))
+        return epochs
+
+    def update_epoch(self, rows, minibatches):
+        """One epoch of minibatch steps on the update's rows: through the
+        update program on one device (every minibatch is full there),
+        eagerly under data parallelism. Returns the mean loss stats."""
+        if self.mesh.world_size > 1:
+            return ppo_update_epoch(self.model, self.optimizer, self.ppo_cfg,
+                                    rows[:9], *rows[9:14], minibatches,
+                                    rows[14], self.mesh.group)
+        return self.update_program(len(minibatches[0])).epoch(
+            rows[:9], *rows[9:14], minibatches, rows[14])
 
     # ------------------------------------------------------------------
     def eval_agent(self, iteration: int):
@@ -464,7 +518,9 @@ class Trainer:
                              f'does not fit a trainer in phase {self.phase}')
         self.model.load_state_dict(ckpt['params'])
         if ckpt.get('opt_state') is not None:
-            self.optimizer.load_state_dict(ckpt['opt_state'])
+            load_optimizer_state(self.optimizer, ckpt['opt_state'])
+            # the update program's capture holds the replaced state tensors
+            self.drop_programs()
         replicate(self.mesh, self.model, self.optimizer)
         self.start_iteration = ckpt['iteration'] + 1
         self.best_plan_state = ckpt.get('best_plan_state')

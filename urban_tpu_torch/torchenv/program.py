@@ -39,8 +39,10 @@ from urban_tpu_torch.torchenv.state import FIELD_NAMES, EnvSpec, PlanState
 
 # bench: sampled actions, auto-reset; collect: explore where a uniform
 # draw is below noise_rate (else argmax), auto-reset, the trajectory's
-# outputs; eval: argmax actions, no reset
-KINDS = ('bench', 'collect', 'eval')
+# outputs; eval: argmax actions, no reset; ga: the GA's gene policy
+# (rl/ga.py GenePolicy in the model's place) decides, no reset
+KINDS = ('bench', 'collect', 'eval', 'ga')
+NO_RESET = ('eval', 'ga')
 
 
 class StepProgram:
@@ -61,7 +63,7 @@ class StepProgram:
                                                        noise_rate)
         self.device = init_state.stage.device
         self.batch_obs, self.batch_step = make_batch_fns(spec)
-        self.init_b = (None if kind == 'eval'
+        self.init_b = (None if kind in NO_RESET
                        else broadcast_state(init_state, batch))
         self.state = broadcast_state(init_state, batch)   # input buffers
         self.use_mean = torch.full((batch,), kind == 'eval',
@@ -81,7 +83,7 @@ class StepProgram:
     def _step(self) -> Dict:
         """The captured region, on the input buffers."""
         state, out = self.state, {}
-        if self.kind != 'eval':
+        if self.kind not in NO_RESET:
             out['was_reset'] = state.done.clone()
             state = reset_done(self.init_b, state)
         obs = self.batch_obs(state)
@@ -146,8 +148,8 @@ class StepProgram:
         """One step from `state`: copy it into the input buffers, then
         replay the graph (or call the step). Returns the outputs: a dict
         of state, reward, done, info and action, with was_reset unless
-        kind is eval, and obs, log_prob, value and explored for collect;
-        static on the card, overwritten by the next run."""
+        kind is eval or ga, and obs, log_prob, value and explored for
+        collect; static on the card, overwritten by the next run."""
         for name in FIELD_NAMES:
             dst, src = getattr(self.state, name), getattr(state, name)
             if dst is not src:
