@@ -59,7 +59,10 @@ road and concept reward checks, the GA phase, the failure replay, both
 sides of the divergence replay, and two checks of the graphs against
 eager steps: two HLG trainers from one seed, one eager, over two
 iterations of collect, update and eval and a third collect, bit for bit;
-the GA's population rollout through its captured step against eager),
+the GA's population rollout through its captured step against eager;
+the learning-parity recipe's trainer CLI at its full batch, 256 envs x
+50 steps, for two iterations and a resumed third, with exact launches
+every iteration, then the best plan's export, read back and host-scored),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -76,6 +79,7 @@ fails. About 9 minutes on an H100, as fast as the host is.
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -626,6 +630,164 @@ def train_graph_vs_eager(dev):
                            for m, r in runs.items()},
             't_update_s': {m: [it['t_update_s'] for it in r['iterations']]
                            for m, r in runs.items()}}
+
+
+@contextlib.contextmanager
+def entry_states(into):
+    """Within the block, every Trainer.train_iteration appends to `into`,
+    on entry, its iteration, the parameters and Adam's state (on the
+    CPU)."""
+    from urban_tpu_torch.rl.trainer import Trainer
+    orig = Trainer.train_iteration
+
+    def train_iteration(self, iteration, do_eval=True):
+        into.append({
+            'iteration': iteration,
+            'params': {k: v.detach().cpu().clone()
+                       for k, v in self.model.state_dict().items()},
+            'adam': {i: {k: v.cpu().clone() for k, v in s.items()}
+                     for i, s in self.optimizer.state_dict()[
+                         'state'].items()}})
+        return orig(self, iteration, do_eval)
+    Trainer.train_iteration = train_iteration
+    try:
+        yield
+    finally:
+        Trainer.train_iteration = orig
+
+
+def train_resume_export_hlg(dev):
+    """The learning-parity recipe's trainer CLI (rl.trainer.main with
+    tools/parity_run.RECIPE: hlg, 256 envs x 50 steps, 4 epochs of
+    minibatch 256, 64 greedy eval envs, seed 111, normalized advantages,
+    tau 0.95) for 2 iterations, then resumed from its final.pt for a
+    third. The resumed run must train iteration 2 alone, starting from the
+    checkpoint's parameters and Adam state; every iteration must launch
+    exactly rollout_len x layers forward kernels in collect and in eval
+    and minibatch steps x layers of each kernel in the update. Then
+    tools/export_best_plan on best.pt: the GeoJSON reads back with the
+    filled plan's type counts and the host score is finite. Runs in a TAIL
+    child."""
+    from urban_tpu_torch.host import city_config
+    from urban_tpu_torch.host.io.geojson import load_geojson
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    from urban_tpu_torch.tools import export_best_plan, parity_run
+    from urban_tpu_torch.torchenv.state import state_to_table
+    out = {'recipe': parity_run.RECIPE, 'runs': []}
+    with tempfile.TemporaryDirectory() as root:
+        argv = parity_run.RECIPE + ['--root_dir', root, '--device', str(dev)]
+        entries = []
+        launches = dict.fromkeys(segment_ops.launches, 0)
+        for run in (['--iterations', '2'], ['--iterations', '3', '--resume',
+                                            os.path.join(root, 'hlg', '111',
+                                                         'models',
+                                                         'final.pt')]):
+            resume = '--resume' in run
+            ckpt = (trainer_mod.read_checkpoint(run[-1]) if resume else None)
+            t0 = time.time()
+            torch.cuda.reset_peak_memory_stats(dev)
+            segment_ops.reset_launches()
+            with entry_states(entries):
+                tr = trainer_mod.main(argv + run)
+            torch.cuda.synchronize(dev)
+            counted = dict(segment_ops.launches)
+            seconds = time.time() - t0
+            layers = tr.cfg.state_encoder_specs['num_gcn_layers']
+            its = []
+            for h in tr.history:
+                mb_layers = len(h.minibatch_rows) * layers
+                expect = {
+                    'collect': {'segment_mean': tr.rollout_len * layers,
+                                'segment_mean_backward': 0},
+                    'update': {'segment_mean': mb_layers,
+                               'segment_mean_backward': mb_layers},
+                    'eval': {'segment_mean': tr.rollout_len * layers,
+                             'segment_mean_backward': 0}}
+                if h.kernel_launches != expect:
+                    raise AssertionError(f'iteration {h.iteration} launches '
+                                         f'{h.kernel_launches} != {expect}')
+                its.append({
+                    'iteration': h.iteration, 't_sample_s': h.sample_time,
+                    't_update_s': h.update_time, 't_eval_s': h.eval_time,
+                    'steps_per_sec': h.steps_per_sec,
+                    'episodes': h.episodes, 'failures': h.failures,
+                    'mean_episode_reward': h.mean_episode_reward,
+                    'eval_reward': h.eval_reward, 'losses': h.losses,
+                    'kernel_launches': {k: sum(p[k] for p in
+                                               h.kernel_launches.values())
+                                        for k in counted}})
+            if counted != {k: sum(i['kernel_launches'][k] for i in its)
+                           for k in counted}:
+                raise AssertionError(f'launches {counted} outside the '
+                                     'iterations')
+            for k in launches:
+                launches[k] += counted[k]
+            if resume:
+                first = entries[-1]
+                same_params = first['params'].keys() == ckpt['params'].keys() \
+                    and all(torch.equal(v, ckpt['params'][k])
+                            for k, v in first['params'].items())
+                want = ckpt['opt_state']['state']
+                same_adam = first['adam'].keys() == want.keys() and all(
+                    s.keys() == want[i].keys() and all(
+                        torch.equal(v, want[i][k].cpu())
+                        for k, v in s.items())
+                    for i, s in first['adam'].items())
+                trained = [h.iteration for h in tr.history]
+                if not (trained == [2] and first['iteration'] == 2
+                        and same_params and same_adam):
+                    raise AssertionError(
+                        f'resume: iterations {trained}, entry '
+                        f'{first["iteration"]}, parameters equal '
+                        f'{same_params}, Adam equal {same_adam}')
+            elif [h.iteration for h in tr.history] != [0, 1]:
+                raise AssertionError('the first run did not train 0, 1')
+            out['runs'].append({
+                'argv': run, 'seconds': seconds, 'iterations': its,
+                'kernel_launches': counted,
+                'best_reward': tr.best_reward,
+                'best_iteration': tr.best_iteration,
+                'peak_allocated_gb': torch.cuda.max_memory_allocated(dev)
+                / 2 ** 30})
+            del tr
+            torch.cuda.empty_cache()
+        out['resume_same_parameters_and_adam'] = True
+        out['kernel_launches'] = launches
+
+        # the export of best.pt: the filled plan reads back, host-scored
+        best = os.path.join(root, 'hlg', '111', 'models', 'best.pt')
+        geojson = os.path.join(root, 'best.geojson')
+        ckpt = trainer_mod.read_checkpoint(best)
+        if ckpt['best_plan_state'] is None:
+            raise AssertionError('no greedy eval succeeded: best.pt holds no '
+                                 'plan')
+        t0 = time.time()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = export_best_plan.main(['--cfg', 'hlg', '--ckpt', best,
+                                        '--out', geojson])
+        lines = printed.getvalue().splitlines()
+        host = float(lines[1].split(': ')[1]) if rc == 0 else float('nan')
+        table = state_to_table(ckpt['best_plan_state'])
+        table.types[table.alive_mask_of(city_config.FEASIBLE)] = \
+            city_config.GREEN_S
+        back = load_geojson(geojson)
+
+        def type_counts(t):
+            kinds, n = np.unique(t.types[t.existence], return_counts=True)
+            return dict(zip(kinds.tolist(), n.tolist()))
+        counts, counts_back = type_counts(table), type_counts(back)
+        if not (rc == 0 and counts == counts_back and np.isfinite(host)
+                and city_config.FEASIBLE not in counts_back):
+            raise AssertionError(f'export: rc {rc}, type counts {counts} / '
+                                 f'{counts_back}, host {host}')
+        out['export'] = {'seconds': time.time() - t0, 'rc': rc,
+                         'printed': lines[0], 'host_reward': host,
+                         'jit_best_reward': ckpt['best_reward'],
+                         'best_iteration': ckpt['best_iteration'],
+                         'type_counts': counts_back}
+    return out
 
 
 def ga_graph_vs_eager(dev):
@@ -1476,7 +1638,7 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('concept_checks', 'cuda'), ('ga_fitness', 'cuda'),
         ('ga_train', 'cuda'), ('divergence_side', 'cuda'),
         ('divergence_side', 'cpu'), ('train_graph_vs_eager', 'cuda'),
-        ('ga_graph_vs_eager', 'cuda'))
+        ('ga_graph_vs_eager', 'cuda'), ('train_resume_export_hlg', 'cuda'))
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -1679,12 +1841,13 @@ def demo_score_plan(checkpoint, trainer_best_reward):
 
 def tail(dev, children, concurrent=True):
     """The graft entry points (phase 17) and the TAIL phases (8-10, the
-    GA, the failure replay, the divergence replay card vs CPU): with
+    GA, the failure replay, the divergence replay card vs CPU, the graphs
+    against eager steps, the parity recipe's resume and export): with
     `concurrent`, each TAIL phase in a child process (those not yet in
     `children` started here) beside the graft entry points, else each in
     this process, one after another. Prints each phase with its own
     seconds, then the tail's wall seconds; returns the failure replay's
-    record."""
+    record and train_resume_export_hlg's."""
     from urban_tpu_torch import graft_entry
     t_tail = time.time()
     if concurrent:
@@ -1717,7 +1880,8 @@ def tail(dev, children, concurrent=True):
         got['ga_train:cuda']
     phase('ga_population_hlg', time.time() - s_fit - s_train, **fit, **train,
           parts_seconds={'fitness': s_fit, 'train_ga': s_train})
-    for name in ('train_graph_vs_eager', 'ga_graph_vs_eager'):
+    for name in ('train_graph_vs_eager', 'ga_graph_vs_eager',
+                 'train_resume_export_hlg'):
         secs, rec = got[f'{name}:cuda']
         phase(name, time.time() - secs, **rec)
     (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
@@ -1727,7 +1891,7 @@ def tail(dev, children, concurrent=True):
           sides_seconds={'cuda': s_card, 'cpu': s_cpu})
     phase('tail', t_tail, concurrent=concurrent,
           phase_seconds={key: got[key][0] for key in got})
-    return replay
+    return replay, got['train_resume_export_hlg:cuda'][1]
 
 
 def main(argv=None):
@@ -2221,7 +2385,7 @@ def smoke(t_start, children, keep_dir):
           batch=kb.BATCHES['dp_rank_update'][0])
 
     # ---- 17-19: the graft entry points and the TAIL phases -------------
-    replay = tail(dev, children)
+    replay, resume = tail(dev, children)
 
     phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
         'env_steps_per_sec'], hlg_rollout_eager_env_steps_per_sec=gve[
@@ -2236,7 +2400,8 @@ def smoke(t_start, children, keep_dir):
          + eval_launches['segment_mean'] + grid_launches['segment_mean']
          + two_launches['segment_mean'] + host_launches['segment_mean']
          + dp['kernel_launches']['segment_mean']
-         + replay['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
+         + replay['kernel_launches']['segment_mean']
+         + resume['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
@@ -2244,7 +2409,8 @@ def smoke(t_start, children, keep_dir):
          + grid_launches['segment_mean_backward']
          + two_launches['segment_mean_backward']
          + host_launches['segment_mean_backward']
-         + dp['kernel_launches']['segment_mean_backward'], bwd_err,
+         + dp['kernel_launches']['segment_mean_backward']
+         + resume['kernel_launches']['segment_mean_backward'], bwd_err,
          bwd[shape]),
     ]
     print(json.dumps({'kernels': [{

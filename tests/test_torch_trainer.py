@@ -43,11 +43,38 @@ def _flat(tree, prefix=''):
     return out
 
 
+def _recipe(cfg, normalize_advantages, tau):
+    """cfg with the trainer CLI's --normalize_advantages and --tau, as
+    both packages' CLIs set them."""
+    if normalize_advantages:
+        cfg.agent_specs = dict(cfg.agent_specs, normalize_advantages=True)
+    if tau is not None:
+        cfg.tau = tau
+    return cfg
+
+
 def test_trainer_update_matches_tpu_trainer(tmp_path, monkeypatch):
+    _check_update_matches_tpu_trainer(tmp_path, monkeypatch)
+
+
+def test_trainer_update_matches_tpu_trainer_under_the_parity_recipe(
+        tmp_path, monkeypatch):
+    """The learning-parity run's flags (BASELINE.md: --normalize_advantages
+    --tau 0.95): the advantages standardized over the success-weighted
+    rows, GAE with lambda 0.95."""
+    _check_update_matches_tpu_trainer(tmp_path, monkeypatch,
+                                      normalize_advantages=True, tau=0.95)
+
+
+def _check_update_matches_tpu_trainer(tmp_path, monkeypatch,
+                                     normalize_advantages=False, tau=None):
     monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
-    jt = TPUTrainer(Config('hlg', 0, root_dir=str(tmp_path / 'jax')),
+    jt = TPUTrainer(_recipe(Config('hlg', 0, root_dir=str(tmp_path / 'jax')),
+                            normalize_advantages, tau),
                     num_envs=2, rollout_len=STEPS, eval_envs=2)
-    tt = Trainer(TorchConfig('hlg', 0, root_dir=str(tmp_path / 'torch')),
+    tt = Trainer(_recipe(TorchConfig('hlg', 0,
+                                     root_dir=str(tmp_path / 'torch')),
+                         normalize_advantages, tau),
                  num_envs=2, rollout_len=STEPS, eval_envs=2, device='cpu')
     assert (tt.spec.num_features, tt.spec.NE) == (jt.spec.num_features,
                                                    jt.spec.NE) == (1344, 3000)

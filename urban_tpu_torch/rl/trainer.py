@@ -104,6 +104,7 @@ class TrainStats:
     update_time: float
     eval_reward: float = float('nan')
     sample_time: float = float('nan')
+    eval_time: float = float('nan')
     losses: Dict[str, float] = field(default_factory=dict)
     failure_causes: Dict[str, int] = field(default_factory=dict)
     # this rank's kernel launches in each part ('collect', 'update',
@@ -453,6 +454,7 @@ class Trainer:
             before = dict(segment_ops.launches)
             eval_r, _ = self.eval_agent(iteration)
             count('eval', before)
+        t3 = time.perf_counter()
         check_replicated(self.mesh, self.model)
         n_steps = int(w_n)
         out = TrainStats(
@@ -461,12 +463,14 @@ class Trainer:
             success_frac=float(w_sum / w_n),
             steps_per_sec=n_steps / max(t1 - t0, 1e-9),
             update_time=t2 - t1, eval_reward=eval_r, sample_time=t1 - t0,
+            eval_time=t3 - t2,
             losses=losses, failure_causes=causes, kernel_launches=launches,
             minibatch_rows=list(self.last_minibatch_rows))
         self.history.append(out)
         self.logger.info(
             f'{iteration}\tT_sample {t1 - t0:.2f}\tT_update {t2 - t1:.2f}\t'
-            f'steps/s {out.steps_per_sec:.0f}\teps {out.episodes}\t'
+            f'T_eval {t3 - t2:.2f}\tsteps/s {out.steps_per_sec:.0f}\t'
+            f'eps {out.episodes}\t'
             f'fail {out.failures}\tR_eps {mean_ep:.3f}\t'
             f'R_eval {eval_r:.3f}\tbest {self.best_reward:.3f}\t'
             f'V_mc_rms {self.last_value_mc_rms:.4f}\t{self.cfg.id}')
@@ -715,6 +719,7 @@ def _train(mesh: Mesh, cfg: Config, iterations: int, num_envs, separate_train,
 
 
 def main(argv=None):
+    """The CLI; returns run_training's result."""
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--cfg', required=True, help='Config id (hlg, ...).')
     ap.add_argument('--global_seed', type=int, default=0)
@@ -763,10 +768,11 @@ def main(argv=None):
     if a.device.startswith('cuda'):
         from urban_tpu_torch.bench import set_precision_flags
         set_precision_flags()
-    run_training(cfg, a.iterations, a.num_envs or None, a.separate_train,
-                 a.eval_envs, a.tensorboard, a.rollout_len or None,
-                 a.resume or None, a.num_devices, a.device,
-                 a.warm_start_phase2, a.encoder)
+    return run_training(cfg, a.iterations, a.num_envs or None,
+                        a.separate_train, a.eval_envs, a.tensorboard,
+                        a.rollout_len or None, a.resume or None,
+                        a.num_devices, a.device, a.warm_start_phase2,
+                        a.encoder)
 
 
 if __name__ == '__main__':
