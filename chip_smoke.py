@@ -32,13 +32,18 @@ train_iteration with land use and roads (192 envs x 110 steps, 4 epochs of
 minibatch 256), whose road head must learn, its update held against a
 twin trainer's eager update as the HLG one is. The MLP encoder (no message
 passing, no kernel) runs on the card against the CPU, forward and one PPO
-loss gradient. Then the grid's two-phase run_training (land use, the
+loss gradient, and the SGNN with bf16 encoder operands (the JAX encoder's
+default numerics) card vs CPU on real HLG states. Then the grid's
+two-phase run_training (land use, the
 freeze of the best greedy plan, roads) of one iteration a phase, its
 resume from the phase-2 checkpoint, and both kernels at the frozen plan's
 graph. Last, the reference API's host-env path: the port's `train` CLI on
 the exact host environment (grid, two phases of one iteration, the policy
 and the PPO update on the card), its `eval` CLI from the best checkpoint
-on the card and on the CPU (the same greedy actions) and a baseline; both
+on the card and on the CPU (the same greedy actions) and a baseline, and
+the policy step's captured graph against the eager step, bit for bit,
+over the first POLICY_STEPS steps the train CLI took and, after other
+parameters are loaded in place, again with the same graph; both
 kernels are also checked at the host observation's graph, at the
 update's batch and at the policy step's batch of one. Then each kernel at
 B = 0 (a data-parallel rank without rows: zeros, no launch); the HLG
@@ -124,6 +129,9 @@ TWO_PHASE_SEED, TWO_PHASE_ENVS, TWO_PHASE_EVAL_ENVS, TWO_PHASE_LEN = 0, 8, 1, 60
 # the host agent's train -> eval: the README's seed; the reference samples
 # 500 episodes an iteration, cut to 8 (and to one iteration a phase)
 HOST_SEED, HOST_EPISODES = 111, 8
+POLICY_STEPS = 600   # host policy steps replayed graphed and eagerly
+POLICY_RELOAD_STEPS = 100   # again after new parameters are loaded
+JAX_INIT = 'results/hlg_jax_init_seed111.npz'   # JAX's HLG initial draw
 TIE_GAP = 1e-5   # greedy card vs CPU: a top-2 logit gap this small may tie
 # data parallelism on the one card: 2 ranks share it through gloo, each
 # with 8 of the 16 envs (35 steps: HLG episodes end, as in `train`), 4
@@ -1191,6 +1199,139 @@ def same_greedy_actions(card, cpu, model_cpu):
     return len(card), None
 
 
+def bf16_operands_card_vs_cpu(cfg, spec, obs, actions, log_probs, dev,
+                               layers):
+    """The SGNN with encoder_operands='bf16' (the JAX encoder's default
+    numerics: bf16-rounded gather and segment-mean operands, f32 sums)
+    from JAX's HLG initial parameters, on real HLG states at the
+    trainer's caps, card vs CPU: the forward (the forward kernel launched
+    `layers` times on the rounded values) and one PPO loss gradient (the
+    backward kernel too). The rounding flips where the card's and the
+    CPU's f32 sums straddle a bf16 boundary, so the bounds are the
+    option's: the mean logit gap card vs CPU under a tenth of the gap
+    between the bf16 and the f32 encoder on the card, at most 1% of the
+    legal logits off by more than TOL_MODEL, the value within 1e-3, the
+    gradient's difference under 1% of its norm."""
+    import copy
+    from urban_tpu_torch.models.convert import load_flax_npz
+    from urban_tpu_torch.models.model import create_model
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl.ppo import PPOConfig, ppo_loss
+    models = {}
+    for operands in ('bf16', 'f32'):
+        m = load_flax_npz(create_model(cfg, spec.num_features, spec.NE,
+                                       encoder_operands=operands), JAX_INIT)
+        models[operands] = (m, copy.deepcopy(m).to(dev))
+    obs_cpu = tuple(o.cpu() for o in obs)
+    obs_dev = tuple(o.to(dev) for o in obs)
+    segment_ops.reset_launches()
+    with torch.no_grad():
+        lu_g, _, _, v_g = models['bf16'][1](obs_dev)
+        torch.cuda.synchronize(dev)
+        launches = dict(segment_ops.launches)
+        lu_f, _, _, _ = models['f32'][1](obs_dev)
+        lu_c, _, _, v_c = models['bf16'][0](obs_cpu)
+    legal = obs_cpu[6]
+    d = (lu_g.cpu() - lu_c)[legal].abs()
+    option = (lu_g - lu_f).cpu()[legal].abs()
+    rng = np.random.default_rng(5)
+    B = actions.shape[0]
+    returns, adv = (torch.as_tensor(rng.normal(size=(B, 1)),
+                                    dtype=torch.float32) for _ in range(2))
+    ones = torch.ones(B)
+    grads = {}
+    for where, m, o in (('card', models['bf16'][1], obs_dev),
+                        ('cpu', models['bf16'][0], obs_cpu)):
+        d_ = o[0].device
+        loss, _ = ppo_loss(m, o, actions.to(d_), returns.to(d_), adv.to(d_),
+                           log_probs[:, None].to(d_), ones.to(d_),
+                           PPOConfig(), ones.to(d_))
+        loss.backward()
+        grads[where] = torch.cat([p.grad.cpu().reshape(-1)
+                                  for p in m.parameters()])
+    rec = {'states': B, 'graph': [spec.NE, spec.num_features],
+           'forward_launches': launches,
+           'logit_mean_abs_diff': float(d.mean()),
+           'logit_max_abs_diff': float(d.max()),
+           'logits_over_tol': float((d > TOL_MODEL).float().mean()),
+           'value_max_abs_diff': float((v_g.cpu() - v_c).abs().max()),
+           'bf16_vs_f32_logit_mean_abs_diff': float(option.mean()),
+           'grad_rel_diff': float((grads['card'] - grads['cpu']).norm()
+                                  / grads['cpu'].norm())}
+    if not (launches == {'segment_mean': layers, 'segment_mean_backward': 0}
+            and rec['logit_mean_abs_diff'] * 10
+            < rec['bf16_vs_f32_logit_mean_abs_diff']
+            and rec['logits_over_tol'] <= 0.01
+            and rec['value_max_abs_diff'] <= 1e-3
+            and rec['grad_rel_diff'] < 1e-2):
+        raise AssertionError(f'bf16 encoder operands card vs cpu: {rec}')
+    return rec
+
+
+def policy_graph_vs_eager(calls, model_cpu, dev, layers):
+    """The host agent's policy step (`calls`: (obs, seed, mean_action)
+    in the order the train CLI took them) replayed through the captured
+    program and stepped eagerly, with one model on the card (a copy of
+    `model_cpu`): every action equal; the seconds a step of each (the
+    program's first call, which captures, apart); one profiler trace of a
+    replay, which must hold `layers` forward kernel events. Then other
+    parameters written in place (`load_state_dict` of a fresh draw, as a
+    checkpoint or an update writes them): over POLICY_RELOAD_STEPS calls
+    the same program, not captured again, equals the eager select, and
+    some of its actions move."""
+    import copy
+    from urban_tpu_torch import kernel_bench as kb
+    from urban_tpu_torch.agents.policy_program import (eager_select,
+                                                       graphed_select)
+    from urban_tpu_torch.models.model import init_like_flax
+    model = copy.deepcopy(model_cpu).to(dev)
+    graphed, eager = graphed_select(model, dev), eager_select(model, dev)
+    acts, seconds = {}, {}
+    t = time.perf_counter()
+    first = graphed(*calls[0])
+    capture_s = time.perf_counter() - t
+    for name, select in (('graph', graphed), ('eager', eager)):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        acts[name] = [select(*c) for c in calls[1:]]
+        seconds[name] = (time.perf_counter() - t) / (len(calls) - 1)
+    acts['graph'].insert(0, first)
+    acts['eager'].insert(0, eager(*calls[0]))
+    differ = [i for i, (a, b) in enumerate(zip(acts['graph'],
+                                               acts['eager']))
+              if not np.array_equal(a, b)]
+    (program,) = graphed.programs.values()
+    trace = kb.one_trace(program.graph.replay, kb.FORWARD_KERNEL, reps=1)
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    model.load_state_dict(init_like_flax(
+        copy.deepcopy(model_cpu), torch.Generator().manual_seed(1))
+        .state_dict())
+    reload = calls[:POLICY_RELOAD_STEPS]
+    after = [(graphed(*c), eager(*c)) for c in reload]
+    reload_differ = [i for i, (a, b) in enumerate(after)
+                     if not np.array_equal(a, b)]
+    moved = sum(not np.array_equal(b, a)
+                for (_, b), a in zip(after, acts['eager']))
+    rec = {'steps': len(calls), 'differ': differ,
+           'sampled_steps': sum(not c[2] for c in calls),
+           'stages': sorted({int(np.argmax(c[0][-1][0])) for c in calls}),
+           'policy_s_per_step': seconds, 'first_call_s': capture_s,
+           'warmup_s': program.warmup_seconds,
+           'capture_s': program.capture_seconds,
+           'replay_launches': program.launches, 'replay_trace': trace,
+           'reload': {'steps': len(reload), 'differ': reload_differ,
+                      'actions_moved': moved,
+                      'programs': len(graphed.programs),
+                      'in_place': ptrs == [p.data_ptr()
+                                           for p in model.parameters()]}}
+    if differ or len(calls) < 500 or trace['kernel_events'] != layers \
+            or program.launches['segment_mean'] != layers \
+            or reload_differ or not moved or not rec['reload']['in_place'] \
+            or list(graphed.programs.values()) != [program]:
+        raise AssertionError(f'host policy graph vs eager: {rec}')
+    return rec
+
+
 def host_agent_grid(dev, layers):
     """The reference API's host-env PPO path on the card: the port's
     `train` CLI (grid, the README's seed, two phases of one iteration,
@@ -1212,7 +1353,7 @@ def host_agent_grid(dev, layers):
     orig = {'select_fn': A._select_action_fn, 'update': A.update_params,
             'freeze': A.freeze_land_use, 'sample': HostSampler.sample,
             'eval': ua.eval_episode}
-    pol = {'steps': 0, 'seconds': 0.0, 'trace': None}
+    pol = {'steps': 0, 'seconds': 0.0, 'trace': None, 'calls': []}
     parts, rec = [], {'road_rewards': [], 'eval_rewards': {}}
 
     def select_fn(self):
@@ -1223,6 +1364,9 @@ def host_agent_grid(dev, layers):
             a = inner(obs, seed, mean_action)
             pol['seconds'] += time.perf_counter() - t
             pol['steps'] += 1
+            if pol['trace'] is None and len(pol['calls']) < POLICY_STEPS:
+                pol['calls'].append((tuple(np.array(o) for o in obs),
+                                     int(seed), bool(mean_action)))
             if pol['trace'] is not None:
                 pol['trace'].append((obs, np.asarray(a).reshape(2)))
             return a
@@ -1313,6 +1457,8 @@ def host_agent_grid(dev, layers):
             pol['trace'] = None
             rec['greedy_steps_compared'], rec['greedy_tie_gap'] = \
                 same_greedy_actions(traces['cuda'], traces['cpu'], ev.model)
+            rec['policy_graph_vs_eager'] = policy_graph_vs_eager(
+                pol['calls'], ev.model, dev, layers)
             del ev
             t = time.time()
             _, log = cli(eval_cli, '--agent', 'rule-centralized', '--device',
@@ -2032,6 +2178,12 @@ def smoke(t_start, children, keep_dir):
           edge_fc_grad_abs_sums=edge_fc,
           segment_mean_grad_fn=type(agg.grad_fn).__name__)
 
+    # ---- 4b'. the bf16 encoder operands on the card vs the CPU ----------
+    t0 = time.time()
+    phase('bf16_operands_card_vs_cpu', t0, **bf16_operands_card_vs_cpu(
+        cfg_t, spec_t, obs_mb, traj.actions[1], traj.log_probs[1], dev,
+        model_cpu.num_gcn_layers))
+
     # ---- 4c. the MLP encoder on the card vs the CPU ---------------------
     # the ablation without message passing, at the grid's widths: logits
     # and value on 256 grid states one step in, then one PPO loss gradient;
@@ -2355,6 +2507,7 @@ def smoke(t_start, children, keep_dir):
           eval_cpu=host['eval_cpu'], baseline=host['baseline'],
           greedy_steps_compared=host['greedy_steps_compared'],
           greedy_tie_gap=host['greedy_tie_gap'],
+          policy_graph_vs_eager=host['policy_graph_vs_eager'],
           peak_gb={'phase1': host['phase1_peak_bytes'] * gb,
                    'phase2': host['phase2_peak_bytes'] * gb},
           train_seconds=host['train_seconds'])

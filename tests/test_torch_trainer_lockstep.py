@@ -1,0 +1,242 @@
+"""The port's PPO trainer loop against the JAX trainer's, across
+iterations: urban_tpu.rl.train_tpu.TPUTrainer and
+urban_tpu_torch.rl.trainer.Trainer side by side on HLG at the trainer's
+caps (N = 1344 nodes, E = 3000 edges), under the learning-parity recipe's
+flags (--normalize_advantages --tau 0.95), from the same parameters (the
+JAX trainer's initial draw, converted).
+
+Both take the same sampling noise: the JAX trainer's own key chain
+(TPUTrainer.collect splits its key, jaxenv/rollout.py splits the step keys
+and draws the exploration uniforms, models/model.py splits the policy key
+per head, and jax.random.categorical adds -log(-log(u)) Gumbel noise of
+uniforms on [tiny, 1)) is drawn here and served, draw by draw, to the
+port's one draw function, urban_tpu_torch.models.policy.uniform, wherever
+it is looked up. Neither package is edited.
+
+Each trainer then runs its own train_iteration twice (collect -> weights
+-> update -> eval) and a third collect (the slow variant, ~160 s here;
+the tier-1 variant runs one iteration without its eval, then the second
+collect, ~110 s), so the loop itself is held: the
+env batch carried from collect to collect (episodes end inside the
+35-step window, about 29 steps, and the unfinished ones cross it),
+auto-reset, the success weights, GAE's bootstrap at the window's edge,
+Adam's state over iterations, the permutation of default_rng(seed +
+iteration), the greedy eval and the best-plan tracking.
+
+Checks: every action, done and failure equal (an action may differ only
+where the perturbed top-2 gap is under 1e-5, the agent tests' rule; the
+test reports the gap of any that differs); rewards, values and log-probs
+within the env lockstep's rtol 1e-5 / atol 1e-4; loss stats within 1e-4;
+parameters within 4e-5 an Adam step, accumulated over the iterations
+(tests/test_torch_trainer.py's bound); Adam's step count equal; the
+iteration statistics, the eval reward, best_reward and best_iteration
+equal. The JAX encoder runs its 'scatter' backend (f32, the port's
+semantics).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from urban_tpu.models import encoder as jenc
+from urban_tpu.rl.train_tpu import TPUTrainer
+from urban_tpu.utils.config import Config
+from urban_tpu_torch.host.utils.config import Config as TorchConfig
+from urban_tpu_torch.models import policy
+from urban_tpu_torch.models.convert import load_flax_params, to_flax_params
+from urban_tpu_torch.rl.trainer import Trainer
+from urban_tpu_torch.torchenv import program
+
+torch.set_num_threads(1)
+
+SEED = 111
+ENVS, STEPS, EVAL_ENVS = 2, 35, 2
+STEP_ATOL = 4e-5          # a parameter's bound, an Adam step
+RTOL, ATOL = 1e-5, 1e-4   # the env lockstep's float rule
+
+
+def _recipe(cfg):
+    cfg.agent_specs = dict(cfg.agent_specs, normalize_advantages=True)
+    cfg.tau = 0.95
+    return cfg
+
+
+def _flat(tree, prefix=''):
+    out = {}
+    for k, v in tree.items():
+        path = f'{prefix}/{k}' if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else
+                   {path: np.asarray(v)})
+    return out
+
+
+def jax_collect_noise(key, num_steps, batch, num_edges, num_nodes):
+    """The uniforms a TPUTrainer.collect draws from its key `key`, in the
+    order the port's collect asks for them: per step, the exploration
+    draw (B,), then the land-use head's (B, E) and the road head's
+    (B, N) Gumbel uniforms."""
+    tiny = float(jnp.finfo(jnp.float32).tiny)
+    _, sub = jax.random.split(key)
+    draws = []
+    for step_rng in jax.random.split(sub, num_steps):
+        rng_a, rng_e = jax.random.split(step_rng)
+        rng_lu, rng_road = jax.random.split(rng_a)
+        draws += [jax.random.uniform(rng_e, (batch,)),
+                  jax.random.uniform(rng_lu, (batch, num_edges),
+                                     minval=tiny, maxval=1.0),
+                  jax.random.uniform(rng_road, (batch, num_nodes),
+                                     minval=tiny, maxval=1.0)]
+    return [np.asarray(d) for d in draws]
+
+
+class ServedNoise:
+    """Stands in for policy.uniform: serves queued JAX draws in order,
+    and a constant where nothing is queued (the greedy eval's heads draw,
+    and the draws decide nothing there)."""
+
+    def __init__(self):
+        self.queue = []
+
+    def __call__(self, shape, generator, device, dtype=torch.float32):
+        if not self.queue:
+            return torch.full(tuple(shape), 0.5, device=device, dtype=dtype)
+        u = self.queue.pop(0)
+        assert tuple(u.shape) == tuple(shape), (u.shape, shape)
+        return torch.tensor(u, device=device, dtype=dtype)
+
+
+def _recorded(obj, name, store, before=None):
+    orig = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        if before is not None:
+            before()
+        out = orig(*args, **kwargs)
+        store.append(out)
+        return out
+    setattr(obj, name, call)
+
+
+def _perturbed_gap(model, traj, t, b, draws):
+    """The top-2 gap of logits + Gumbel noise of the row (t, b) of a
+    collect, on the port's observation, in the head of its stage."""
+    obs = tuple(o[t, b:b + 1] for o in traj.obs)
+    with torch.no_grad():
+        lu, road, stage, _ = model(obs)
+    head, u = (lu, draws[3 * t + 1]) if stage[0, 0] > 0.5 else \
+        (road, draws[3 * t + 2])
+    scores = head[0] - torch.log(-torch.log(torch.as_tensor(u[b])))
+    top = torch.topk(scores, 2).values
+    return float(top[0] - top[1])
+
+
+def _compare_collect(tt, j, t, draws, where):
+    """The port's trajectory t against JAX's j, step by step."""
+    ja, ta = np.asarray(j.actions), t.actions.numpy()
+    bad = np.argwhere((ja != ta).any(-1))
+    gaps = [(int(s), int(b), _perturbed_gap(tt.model, t, s, b, draws))
+            for s, b in bad]
+    assert not gaps, f'{where}: actions differ at (step, env, gap) {gaps}'
+    for name in ('dones', 'failures'):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)),
+                                      err_msg=f'{where} {name}')
+    np.testing.assert_array_equal(t.exps.numpy(), np.asarray(j.exps))
+    for name in ('rewards', 'values', 'log_probs'):
+        np.testing.assert_allclose(getattr(t, name).numpy(),
+                                   np.asarray(getattr(j, name)), rtol=RTOL,
+                                   atol=ATOL, err_msg=f'{where} {name}')
+
+
+def _adam_count(opt_state):
+    adam = [x for x in jax.tree.leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(x, optax.ScaleByAdamState)]
+    assert len(adam) == 1, opt_state
+    return int(adam[0].count)
+
+
+@pytest.mark.parametrize('iterations,do_eval', [
+    (1, False), pytest.param(2, True, marks=pytest.mark.slow)])
+def test_trainer_loop_matches_tpu_trainer_across_iterations(
+        iterations, do_eval, tmp_path, monkeypatch):
+    monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
+    jt = TPUTrainer(_recipe(Config('hlg', SEED,
+                                   root_dir=str(tmp_path / 'jax'))),
+                    num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS)
+    tt = Trainer(_recipe(TorchConfig('hlg', SEED,
+                                     root_dir=str(tmp_path / 'torch'))),
+                 num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS,
+                 device='cpu')
+    assert (tt.spec.num_features, tt.spec.NE) == (1344, 3000)
+    load_flax_params(tt.model, jax.tree.map(np.asarray, jt.params))
+
+    noise = ServedNoise()
+    monkeypatch.setattr(policy, 'uniform', noise)
+    monkeypatch.setattr(program, 'uniform', noise)
+    keys, j_trajs, t_trajs, j_stats, t_stats = [], [], [], [], []
+    _recorded(jt, 'collect', j_trajs, before=lambda: keys.append(jt.rng))
+    _recorded(tt, 'collect', t_trajs)
+    _recorded(jt, 'update', j_stats)
+    _recorded(tt, 'update', t_stats)
+
+    def serve():
+        draws = jax_collect_noise(keys[-1], STEPS, ENVS, tt.spec.NE,
+                                  tt.spec.num_features)
+        noise.queue = list(draws)
+        return draws
+
+    ended = crossed = 0
+    for it in range(iterations + 1):
+        where = f'iteration {it}'
+        if it < iterations:
+            j_it = jt.train_iteration(it, do_eval)
+            draws = serve()
+            t_it = tt.train_iteration(it, do_eval)
+        else:                     # the collect after the last iteration
+            jt.collect()
+            draws = serve()
+            tt.collect()
+        assert not noise.queue, f'{where}: the port drew less than JAX'
+        _compare_collect(tt, j_trajs[-1], t_trajs[-1], draws, where)
+        dones = t_trajs[-1].dones.numpy()
+        ended += int(dones.sum())
+        crossed += int((~dones[-1]).sum())
+        if it == iterations:
+            break
+
+        for k, v in t_stats[-1].items():
+            np.testing.assert_allclose(float(v), float(j_stats[-1][k]),
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f'{where} {k}')
+        np.testing.assert_allclose(tt.last_value_mc_rms,
+                                   jt.last_value_mc_rms, rtol=1e-5,
+                                   atol=1e-5, err_msg=where)
+        adam_steps = _adam_count(jt.opt_state)
+        assert adam_steps == 4 * (it + 1)       # 4 epochs of 1 minibatch
+        assert {int(s['step']) for s in tt.optimizer.state.values()} == \
+            {adam_steps}
+        a = _flat(to_flax_params(tt.model)['params'])
+        b = _flat(jax.tree.map(np.asarray, jt.params)['params'])
+        assert set(a) == set(b)
+        for k in sorted(a):
+            np.testing.assert_allclose(a[k], b[k], rtol=0,
+                                       atol=adam_steps * STEP_ATOL,
+                                       err_msg=f'{where} {k}')
+
+        assert (t_it.episodes, t_it.failures) == (j_it.episodes,
+                                                  j_it.failures), where
+        for name in ('mean_episode_reward', 'success_frac', 'eval_reward'
+                     )[:3 if do_eval else 2]:
+            np.testing.assert_allclose(getattr(t_it, name),
+                                       getattr(j_it, name), rtol=RTOL,
+                                       atol=ATOL, err_msg=f'{where} {name}')
+        np.testing.assert_allclose(tt.best_reward, jt.best_reward,
+                                   rtol=RTOL, atol=ATOL, err_msg=where)
+        assert tt.best_iteration == jt.best_iteration, where
+
+    # the window ended episodes and carried unfinished ones across it
+    assert ended >= ENVS * (iterations + 1) and crossed > 0
+    assert jt.best_iteration >= 0 or not do_eval

@@ -12,7 +12,10 @@ curriculum and the GA evaluation hooks.
 
 The learned policy takes one host sync a step: the host observation goes
 to the device, ``select_action_mixed`` draws from a ``torch.Generator``
-seeded from the sampler's per-step seed, and the action comes back.
+seeded from the sampler's per-step seed, and the action comes back. On
+the card the step replays one captured CUDA graph (``policy_program``:
+one copy in, the graph, one copy out), the counterpart of the JAX agent's
+jitted select; on the CPU it runs eagerly.
 """
 from __future__ import annotations
 
@@ -25,6 +28,9 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from urban_tpu_torch.agents.policy_program import (eager_select,
+                                                   graphed_select,
+                                                   obs_to_torch)
 from urban_tpu_torch.host.envs.city import CityEnv
 from urban_tpu_torch.host.models.baseline import (GAPolicy, GSCAPolicy,
                                                   NullModel,
@@ -42,19 +48,6 @@ from urban_tpu_torch.rl.ppo import (STAT_KEYS, PPOConfig,
                                     load_optimizer_state, make_optimizer,
                                     ppo_update_step)
 from urban_tpu_torch.utils.checkpoint import to_cpu
-
-# dtypes of the host observation's nine arrays on the device (the SGNN's
-# observation layout, models/encoder.py)
-OBS_DTYPES = (torch.float32, torch.float32, torch.int32, torch.float32,
-              torch.bool, torch.bool, torch.bool, torch.bool, torch.float32)
-
-
-def obs_to_torch(obs, device) -> tuple:
-    """A batched host observation (nine numpy arrays, edges int64) as the
-    model's tensors on `device`."""
-    return tuple(torch.as_tensor(np.asarray(o), dtype=dt).to(device)
-                 for o, dt in zip(obs, OBS_DTYPES))
-
 
 def get_eta_str(cur_iter: int, total_iter: int, time_per_iter: float) -> str:
     eta = time_per_iter * (total_iter - cur_iter - 1)
@@ -158,19 +151,13 @@ class UrbanPlanningAgent:
 
     def _select_action_fn(self):
         """Policy closure with the HostSampler contract:
-        select(obs_batched, seed, mean_action) -> (B, 2) int array."""
+        select(obs_batched, seed, mean_action) -> (B, 2) int array; the
+        captured program's replay on the card, the eager step on the
+        CPU."""
         if self.model is not None:
-            dev = self.device
-
-            @torch.no_grad()
-            def select(obs, seed, mean_action):
-                obs_t = obs_to_torch(obs, dev)
-                gen = torch.Generator(device=dev).manual_seed(int(seed))
-                use_mean = torch.full(obs_t[0].shape[:1], bool(mean_action),
-                                      device=dev)
-                return self.model.select_action_mixed(
-                    obs_t, gen, use_mean).cpu().numpy()
-            return select
+            if self.device.type == 'cuda':
+                return graphed_select(self.model, self.device)
+            return eager_select(self.model, self.device)
 
         policy = self.policy_net
 

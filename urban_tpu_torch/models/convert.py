@@ -65,11 +65,19 @@ def to_flax_params(model: ActorCritic) -> Dict[str, Dict]:
     return {'params': tree}
 
 
+def load_flax_npz(model: ActorCritic, path) -> ActorCritic:
+    """Fill ``model`` in place from an .npz of a Flax parameter tree
+    flattened under its paths, and return it."""
+    with np.load(path) as f:
+        return load_flax_params(model, {k: f[k] for k in f.files})
+
+
 def load_flax_params(model: ActorCritic, params: Mapping) -> ActorCritic:
     """Fill ``model`` in place from a Flax tree ({'params': {...}} or the
-    inner dict) and return it."""
-    tree = params['params'] if 'params' in params else params
-    flat = _flatten(tree)
+    inner dict), or from its leaves keyed by their '/'-joined paths (an
+    .npz of the tree: 'params/shared_net/node_encoder/kernel', ...), and
+    return it."""
+    flat = {k.removeprefix('params/'): v for k, v in _flatten(params).items()}
     expected = {}
     for path, layer in _linear_map(model).items():
         expected[f'{path}/kernel'] = (layer.weight, True)

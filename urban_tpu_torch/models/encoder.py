@@ -9,6 +9,15 @@ edge-to-node aggregation always goes through
 CUDA tensor); the gather is plain f32 indexing, with a gradient that
 sums in a fixed order (``endpoint_rows``).
 
+With ``operands='bf16'`` the SGNN rounds the operands of its message
+passing as the JAX encoder's default backend (urban_tpu/models/encoder.py,
+SCATTER_MODE 'matmul') does: the node features to bf16 before the
+endpoint gather, the edge features to bf16 before the segment mean, both
+summed in f32. The rounding is an elementwise cast to bf16 and back,
+outside the kernel (the forward kernel takes the rounded f32 values), and
+its gradient is rounded to bf16 too, as the JAX gradient through those
+bf16 matmul operands is. The default, 'f32', rounds nothing.
+
 MLPStateEncoder: the ablation without message passing; each edge takes the
 features of its feasible-side endpoint, and no segment mean runs.
 
@@ -29,6 +38,7 @@ from urban_tpu_torch.host import city_config
 from urban_tpu_torch.ops.segment_ops import segment_mean
 
 EPSILON = 1e-6
+OPERANDS = ('f32', 'bf16')
 
 
 class MLP(nn.Module):
@@ -73,17 +83,26 @@ def first_argmax(x):
     return torch.where(x == top, idx, x.shape[-1]).amin(dim=-1)
 
 
-def gather_to_edges(h_nodes, edges, edge_mask, edge_fc):
+def round_operand(x, operands: str):
+    """x as the message passing takes it: rounded to bf16 and back to f32
+    with operands 'bf16' (its gradient rounded alike), else x itself."""
+    if operands == 'bf16':
+        return x.to(torch.bfloat16).to(x.dtype)
+    return x
+
+
+def gather_to_edges(h_nodes, edges, edge_mask, edge_fc, operands='f32'):
     """Per-edge embeddings from both endpoints through a symmetrized MLP."""
-    h1, h2 = endpoint_rows(h_nodes, edges)
+    h1, h2 = endpoint_rows(round_operand(h_nodes, operands), edges)
     h12 = torch.cat([h1, h2], dim=-1)
     h21 = torch.cat([h2, h1], dim=-1)
     h_edges = 0.5 * (edge_fc(h12) + edge_fc(h21))
     return torch.where(edge_mask[..., None], h_edges, 0.0)
 
 
-def scatter_to_nodes(h_edges, edges, edge_mask, num_nodes):
+def scatter_to_nodes(h_edges, edges, edge_mask, num_nodes, operands='f32'):
     """Mean-aggregate edge embeddings back to their endpoints."""
+    h_edges = round_operand(h_edges, operands)
     return segment_mean(h_edges.contiguous(), edges.contiguous(),
                         edge_mask.contiguous(), num_nodes)
 
@@ -123,8 +142,12 @@ class SGNNStateEncoder(nn.Module):
                  hidden_size: Sequence[int], gcn_node_dim: int,
                  num_gcn_layers: int, num_edge_fc_layers: int,
                  num_attention_heads: int, max_num_nodes: int,
-                 max_num_edges: int):
+                 max_num_edges: int, operands: str = 'f32'):
         super().__init__()
+        if operands not in OPERANDS:
+            raise ValueError(f'operands must be one of {OPERANDS}, not '
+                             f'{operands!r}')
+        self.operands = operands
         self.gcn_node_dim = gcn_node_dim
         self.max_num_nodes = max_num_nodes
         self.max_num_edges = max_num_edges
@@ -148,9 +171,11 @@ class SGNNStateEncoder(nn.Module):
         h_edges = h_nodes.new_zeros(h_nodes.shape[0], self.max_num_edges,
                                     self.gcn_node_dim)
         for edge_fc in self.edge_fc:
-            h_edges = gather_to_edges(h_nodes, edges, edge_mask, edge_fc)
+            h_edges = gather_to_edges(h_nodes, edges, edge_mask, edge_fc,
+                                      self.operands)
             h_nodes = h_nodes + scatter_to_nodes(h_edges, edges, edge_mask,
-                                                 self.max_num_nodes)
+                                                 self.max_num_nodes,
+                                                 self.operands)
 
         h_edges_mean = mean_features(h_edges, edge_mask)
         h_nodes_mean = mean_features(h_nodes, node_mask)

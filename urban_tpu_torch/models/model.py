@@ -29,14 +29,19 @@ class ActorCritic(nn.Module):
                  max_num_edges: int, land_use_hidden: Sequence[int],
                  road_hidden: Sequence[int], value_hidden: Sequence[int],
                  numerical_dim: int = NUMERICAL_DIM, node_dim: int = NODE_DIM,
-                 encoder: str = 'sgnn'):
+                 encoder: str = 'sgnn', encoder_operands: str = 'f32'):
+        """encoder_operands: 'bf16' rounds the SGNN's gather and segment
+        mean operands as the JAX encoder's default backend does
+        (SGNNStateEncoder's operands); the MLP encoder has neither."""
         super().__init__()
         self.encoder = encoder
         if encoder == 'sgnn':
             self.shared_net = SGNNStateEncoder(
                 numerical_dim, node_dim, hidden_size, gcn_node_dim,
                 num_gcn_layers, num_edge_fc_layers, num_attention_heads,
-                max_num_nodes, max_num_edges)
+                max_num_nodes, max_num_edges, operands=encoder_operands)
+        elif encoder_operands != 'f32':
+            raise ValueError('encoder_operands applies to the SGNN encoder')
         elif encoder == 'mlp':
             self.shared_net = MLPStateEncoder(
                 numerical_dim, node_dim, hidden_size, gcn_node_dim,
@@ -158,13 +163,15 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def create_model(cfg, max_num_nodes: int | None = None,
                  max_num_edges: int | None = None,
-                 encoder: str = 'sgnn') -> ActorCritic:
+                 encoder: str = 'sgnn',
+                 encoder_operands: str = 'f32') -> ActorCritic:
     """Build the actor-critic (encoder 'sgnn' or 'mlp') from a config's
     spec dicts. The graph caps default to the config's and are normally
-    the env spec's (num_features, NE)."""
+    the env spec's (num_features, NE). encoder_operands: 'f32', or 'bf16'
+    for the JAX encoder's default numerics (ActorCritic)."""
     se = cfg.state_encoder_specs
     return ActorCritic(
-        encoder=encoder,
+        encoder=encoder, encoder_operands=encoder_operands,
         hidden_size=tuple(se['state_encoder_hidden_size']),
         gcn_node_dim=se['gcn_node_dim'],
         num_gcn_layers=se.get('num_gcn_layers', 2),

@@ -150,13 +150,18 @@ class Trainer:
                  rollout_len: Optional[int] = None, eval_envs: int = 16,
                  device='cuda', use_tensorboard: bool = False,
                  keep_boundaries: bool = False, encoder: str = 'sgnn',
-                 mesh: Optional[Mesh] = None, eager: bool = False):
+                 mesh: Optional[Mesh] = None, eager: bool = False,
+                 encoder_operands: str = 'f32'):
         """mesh: this rank's data-parallel mesh (make_mesh); its device
         replaces `device`. Without one the trainer runs on one device.
         eager: collect, eval and update step eagerly on the card instead
-        of replaying their captured graphs (the graphs' reference)."""
+        of replaying their captured graphs (the graphs' reference).
+        encoder_operands: 'bf16' rounds the SGNN's gather and segment-mean
+        operands as the JAX encoder's default backend does (create_model);
+        'f32' rounds nothing."""
         self.cfg = cfg
         self.eager = eager
+        self.encoder_operands = encoder_operands
         self.mesh = mesh if mesh is not None else make_mesh(1, device)
         self.device = self.mesh.device
         self.encoder = encoder
@@ -225,7 +230,8 @@ class Trainer:
         cfg.state_encoder_specs = dict(cfg.state_encoder_specs)
         cfg.state_encoder_specs['max_num_nodes'] = self.spec.num_features
         cfg.state_encoder_specs['max_num_edges'] = self.spec.NE
-        model = create_model(cfg, encoder=self.encoder)
+        model = create_model(cfg, encoder=self.encoder,
+                             encoder_operands=self.encoder_operands)
         init_like_flax(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(),
@@ -609,7 +615,8 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
                  use_tensorboard: bool = False, rollout_len: int = None,
                  resume: str = None, num_devices: int = 0,
                  device='cuda', warm_start_phase2: bool = True,
-                 encoder: str = 'sgnn', timeout: Optional[float] = None):
+                 encoder: str = 'sgnn', timeout: Optional[float] = None,
+                 encoder_operands: str = 'f32'):
     """Training loop: iterations x train_iteration with a checkpoint every
     save_model_interval iterations and a final one; with separate_train,
     the land-use phase, the freeze of its best plan, then as many
@@ -630,10 +637,10 @@ def run_training(cfg: Config, iterations: int, num_envs: Optional[int],
                      rendezvous_dir=cfg.cfg_dir, args=(
                          cfg, iterations, num_envs, separate_train,
                          eval_envs, use_tensorboard, rollout_len, resume,
-                         warm_start_phase2, encoder))
+                         warm_start_phase2, encoder, encoder_operands))
     return _train(make_mesh(n, device), cfg, iterations, num_envs,
                   separate_train, eval_envs, use_tensorboard, rollout_len,
-                  resume, warm_start_phase2, encoder)
+                  resume, warm_start_phase2, encoder, encoder_operands)
 
 
 def rank_summary(trainer: Trainer) -> dict:
@@ -658,7 +665,7 @@ def _train_rank(mesh: Mesh, *args) -> dict:
 
 def _train(mesh: Mesh, cfg: Config, iterations: int, num_envs, separate_train,
            eval_envs, use_tensorboard, rollout_len, resume,
-           warm_start_phase2, encoder) -> Trainer:
+           warm_start_phase2, encoder, encoder_operands) -> Trainer:
     """run_training's loop on this rank. Every rank reads a resume
     checkpoint."""
     ckpt = read_checkpoint(resume) if resume else None
@@ -670,7 +677,7 @@ def _train(mesh: Mesh, cfg: Config, iterations: int, num_envs, separate_train,
     trainer = Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
                       eval_envs=eval_envs, use_tensorboard=use_tensorboard,
                       keep_boundaries=separate_train, encoder=encoder,
-                      mesh=mesh)
+                      mesh=mesh, encoder_operands=encoder_operands)
     if mesh.world_size > 1:
         trainer.logger.info(
             f'data parallel: {mesh.world_size} ranks, backend '
@@ -742,6 +749,11 @@ def main(argv=None):
     ap.add_argument('--encoder', choices=('sgnn', 'mlp'), default='sgnn',
                     help='State encoder: the SGNN, or the MLP ablation '
                     'without message passing.')
+    ap.add_argument('--encoder_operands', choices=('f32', 'bf16'),
+                    default='f32',
+                    help='bf16: round the SGNN\'s gather and segment-mean '
+                    'operands to bf16, as the JAX encoder\'s default '
+                    'backend does.')
     ap.add_argument('--tensorboard', action='store_true',
                     help='Write TensorBoard scalars.')
     ap.add_argument('--normalize_advantages', action='store_true',
@@ -772,7 +784,7 @@ def main(argv=None):
                         a.separate_train, a.eval_envs, a.tensorboard,
                         a.rollout_len or None, a.resume or None,
                         a.num_devices, a.device, a.warm_start_phase2,
-                        a.encoder)
+                        a.encoder, encoder_operands=a.encoder_operands)
 
 
 if __name__ == '__main__':
