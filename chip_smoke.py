@@ -6,9 +6,10 @@ Builds the two CUDA kernels from the sources in the checkout (one nvcc per
 source, all at once) and checks each against its plain PyTorch version at
 the shapes of the main paths: the forward segment mean, which every path
 runs, and its backward, which the PPO update runs, each at the HLG
-rollout's, the HLG trainer's, a large graph's, the grid trainer's and the
-concept scenarios' size, timed beside one PyTorch library call and its
-memory bound (urban_tpu_torch/kernel_bench.py). The backward must give the
+rollout's, the HLG trainer's, a large graph's, the grid trainer's, the
+concept scenarios' and the Huizhou trainer's size, timed beside one
+PyTorch library call and its memory bound
+(urban_tpu_torch/kernel_bench.py). The backward must give the
 plain version's bits, on the card and on the CPU.
 Runs the SGNN policy on the card against the same model on the CPU, and
 one PPO loss backward on the card against the CPU. Drives the batched HLG
@@ -67,7 +68,10 @@ iterations of collect, update and eval and a third collect, bit for bit;
 the GA's population rollout through its captured step against eager;
 the learning-parity recipe's trainer CLI at its full batch, 256 envs x
 50 steps, for two iterations and a resumed third, with exact launches
-every iteration, then the best plan's export, read back and host-scored),
+every iteration, then the best plan's export, read back and host-scored;
+the same recipe on Huizhou through tools/parity_run.py, 16 envs x 50
+steps for one iteration, exact launches, then its export; one HLG
+iteration of the MLP encoder's trainer, no launch, and its eval),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -159,6 +163,13 @@ REPLAY_BUDGET_S = 60.0
 # has rows to learn from); the batch cut to TGE_ENVS (4 minibatches of
 # 256 rows an epoch), as an eager step takes ~0.45 s whatever the batch
 TGE_ENVS, TGE_EVAL_ENVS, TGE_ITERATIONS = 32, 4, 2
+# Huizhou under the parity recipe's CLI, cut from 192 envs to HZ_ENVS (the
+# episode cap of 50 steps kept: 3 minibatches of 256 rows an epoch) and
+# from 64 greedy eval envs to HZ_EVAL_ENVS, one iteration
+HZ_ENVS, HZ_EVAL_ENVS = 16, 4
+# the MLP encoder's train path: one HLG iteration, TRAIN_LEN steps (HLG
+# episodes end), a few greedy eval envs
+MLP_ENVS, MLP_EVAL_ENVS = 32, 4
 
 
 def phase(name, t0, **kv):
@@ -796,6 +807,145 @@ def train_resume_export_hlg(dev):
                          'best_iteration': ckpt['best_iteration'],
                          'type_counts': counts_back}
     return out
+
+
+def unmoved_parameters(after, before):
+    """The names of the parameters (name -> tensor) equal in `after` and
+    `before`, checked to be the road head's alone: on a land-use-only
+    scenario (skip_road) its gradient is exactly zero and Adam leaves it
+    as it was; every other parameter must move."""
+    unchanged = sorted(k for k, p in after.items()
+                       if torch.equal(p.detach().cpu(), before[k].cpu()))
+    if any(not k.startswith('road_head.') for k in unchanged):
+        raise AssertionError(f'parameters the update left as they were: '
+                             f'{unchanged}')
+    return unchanged
+
+
+def huizhou_train_export(dev):
+    """The parity recipe's CLI (tools/parity_run.py) on Huizhou, the
+    scenario of JAX's round-5 record: --cfg huizhou at HZ_ENVS envs x the
+    50-step episode cap, 4 epochs of minibatch 256, HZ_EVAL_ENVS greedy
+    eval envs, seed 111, one iteration. The summary must name what ran;
+    the iteration must launch exactly rollout_len x layers forward kernels
+    in collect and in eval and minibatch steps x layers of each kernel in
+    the update; every parameter but the road head's must move. Then
+    tools/export_best_plan on best.pt: a finite host score, or the
+    record says that no greedy eval succeeded. Runs in a TAIL child."""
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    from urban_tpu_torch.tools import export_best_plan, parity_run
+    with tempfile.TemporaryDirectory() as root:
+        entries = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        segment_ops.reset_launches()
+        t0 = time.time()
+        with entry_states(entries):
+            summary = parity_run.main([
+                '--iterations', '1', '--root_dir', root,
+                '--stats', os.path.join(root, 'stats.jsonl'),
+                '--cfg', 'huizhou', '--num_envs', str(HZ_ENVS),
+                '--eval_envs', str(HZ_EVAL_ENVS), '--device', str(dev)])
+        torch.cuda.synchronize(dev)
+        counted = dict(segment_ops.launches)
+        seconds = time.time() - t0
+        eff = summary['effective']
+        if (eff['cfg'], eff['num_envs'], eff['eval_envs'], eff['seed'],
+                eff['encoder']) != ('huizhou', HZ_ENVS, HZ_EVAL_ENVS, 111,
+                                    'sgnn'):
+            raise AssertionError(f'the run was not the recipe: {eff}')
+        with open(os.path.join(root, 'stats.jsonl')) as f:
+            (st,) = [json.loads(line) for line in f
+                     if not line.startswith('{"summary"')]
+        models = os.path.join(root, 'huizhou', '111', 'models')
+        final = trainer_mod.read_checkpoint(os.path.join(models,
+                                                         'final.pt'))
+        cfg = trainer_mod.Config('huizhou', 111, root_dir=root)
+        layers = cfg.state_encoder_specs['num_gcn_layers']
+        mb_layers = cfg.num_optim_epoch * (
+            HZ_ENVS * eff['rollout_len'] // cfg.mini_batch_size) * layers
+        steps = eff['rollout_len'] * layers
+        expect = {'collect': {'segment_mean': steps,
+                              'segment_mean_backward': 0},
+                  'update': {'segment_mean': mb_layers,
+                             'segment_mean_backward': mb_layers},
+                  'eval': {'segment_mean': steps,
+                           'segment_mean_backward': 0}}
+        total = {k: sum(p[k] for p in expect.values()) for k in counted}
+        if st['kernel_launches'] != expect or counted != total:
+            raise AssertionError(f'launches {st["kernel_launches"]} / '
+                                 f'{counted} != {expect}')
+        unchanged = unmoved_parameters(final['params'],
+                                       entries[0]['params'])
+
+        t1 = time.time()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = export_best_plan.main([
+                '--cfg', 'huizhou', '--ckpt', os.path.join(models, 'best.pt'),
+                '--out', os.path.join(root, 'best.geojson')])
+        lines = printed.getvalue().splitlines()
+        if rc == 0:
+            host = float(lines[1].split(': ')[1])
+            if not np.isfinite(host):
+                raise AssertionError(f'export: host score {host}')
+            export = {'rc': rc, 'printed': lines[0], 'host_reward': host}
+        elif lines == ['checkpoint has no best_plan_state']:
+            export = {'rc': rc, 'printed': 'no greedy eval succeeded: no '
+                      'plan to export', 'host_reward': None}
+        else:
+            raise AssertionError(f'export: rc {rc}, {lines}')
+        export.update(seconds=time.time() - t1,
+                      jit_best_reward=summary['best_reward'],
+                      best_iteration=summary['best_iteration'])
+    return {'effective': eff, 'seconds': seconds,
+            't_sample_s': st['sample_time'], 't_update_s': st['update_time'],
+            't_eval_s': st['eval_time'], 'episodes': st['episodes'],
+            'failures': st['failures'],
+            'failure_causes': st['failure_causes'],
+            'mean_episode_reward': st['mean_episode_reward'],
+            'eval_reward': st['eval_reward'], 'losses': st['losses'],
+            'minibatch_steps': len(st['minibatch_rows']),
+            'iteration_kernel_launches': st['kernel_launches'],
+            'kernel_launches': counted, 'unchanged_parameters': unchanged,
+            'peak_allocated_bytes': summary['peak_allocated_bytes'],
+            'export': export}
+
+
+def mlp_train_hlg(dev):
+    """The MLP encoder's train path: one HLG train_iteration with
+    encoder='mlp' (MLP_ENVS envs x TRAIN_LEN steps, 4 epochs of minibatch
+    256, through the collect and update programs), then a greedy eval of
+    MLP_EVAL_ENVS envs. Neither kernel may launch, every parameter but the
+    road head's must move, the losses and the eval must be finite. Runs
+    in a TAIL child."""
+    from urban_tpu_torch import bench
+    from urban_tpu_torch.ops import segment_ops
+    with tempfile.TemporaryDirectory() as run_dir:
+        trainer = bench.make_trainer(MLP_ENVS, TRAIN_LEN, dev, seed=0,
+                                     eval_envs=MLP_EVAL_ENVS,
+                                     root_dir=run_dir, encoder='mlp')
+        before = {k: p.detach().clone()
+                  for k, p in trainer.model.named_parameters()}
+        train = bench.measure_train_iteration(trainer)   # resets the counts
+        unchanged = unmoved_parameters(
+            dict(trainer.model.named_parameters()), before)
+        t0 = time.time()
+        eval_r, chans = trainer.eval_agent(0)
+        torch.cuda.synchronize(dev)
+        t_eval = time.time() - t0
+        launches = dict(segment_ops.launches)   # the iteration's and eval's
+    if launches != {'segment_mean': 0, 'segment_mean_backward': 0}:
+        raise AssertionError(f'the MLP encoder launched {launches}')
+    if train['episodes'] < 1:
+        raise AssertionError('no episode ended in the MLP collect')
+    if not all(np.isfinite(v) for v in (*train['losses'].values(), eval_r,
+                                        *chans.values())):
+        raise AssertionError(f'non-finite MLP losses or eval: '
+                             f'{train["losses"]} {eval_r} {chans}')
+    return dict(train, encoder='mlp', eval_envs=MLP_EVAL_ENVS,
+                t_eval_s=t_eval, eval_reward=eval_r, eval_channels=chans,
+                unchanged_parameters=unchanged, kernel_launches=launches)
 
 
 def ga_graph_vs_eager(dev):
@@ -1784,7 +1934,11 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('concept_checks', 'cuda'), ('ga_fitness', 'cuda'),
         ('ga_train', 'cuda'), ('divergence_side', 'cuda'),
         ('divergence_side', 'cpu'), ('train_graph_vs_eager', 'cuda'),
-        ('ga_graph_vs_eager', 'cuda'), ('train_resume_export_hlg', 'cuda'))
+        ('ga_graph_vs_eager', 'cuda'), ('train_resume_export_hlg', 'cuda'),
+        ('huizhou_train_export', 'cuda'), ('mlp_train_hlg', 'cuda'))
+# the TAIL phases that train: their launches go into the kernels' counts
+TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
+              'mlp_train_hlg')
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -1993,7 +2147,7 @@ def tail(dev, children, concurrent=True):
     `children` started here) beside the graft entry points, else each in
     this process, one after another. Prints each phase with its own
     seconds, then the tail's wall seconds; returns the failure replay's
-    record and train_resume_export_hlg's."""
+    record and the records of the TRAIN_TAIL phases, by name."""
     from urban_tpu_torch import graft_entry
     t_tail = time.time()
     if concurrent:
@@ -2026,8 +2180,7 @@ def tail(dev, children, concurrent=True):
         got['ga_train:cuda']
     phase('ga_population_hlg', time.time() - s_fit - s_train, **fit, **train,
           parts_seconds={'fitness': s_fit, 'train_ga': s_train})
-    for name in ('train_graph_vs_eager', 'ga_graph_vs_eager',
-                 'train_resume_export_hlg'):
+    for name in ('train_graph_vs_eager', 'ga_graph_vs_eager') + TRAIN_TAIL:
         secs, rec = got[f'{name}:cuda']
         phase(name, time.time() - secs, **rec)
     (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
@@ -2037,7 +2190,7 @@ def tail(dev, children, concurrent=True):
           sides_seconds={'cuda': s_card, 'cpu': s_cpu})
     phase('tail', t_tail, concurrent=concurrent,
           phase_seconds={key: got[key][0] for key in got})
-    return replay, got['train_resume_export_hlg:cuda'][1]
+    return replay, {name: got[f'{name}:cuda'][1] for name in TRAIN_TAIL}
 
 
 def main(argv=None):
@@ -2108,8 +2261,8 @@ def smoke(t_start, children, keep_dir):
     # ---- 3. the kernels against their plain versions --------------------
     # the forward and the backward at every shape of kb.SHAPES, on a random
     # bipartite graph (timed) and on a scenario's initial observation: HLG
-    # at the rollout's and the trainer's size, grid at its trainer's, and
-    # hlg_concept at the concept trainer's
+    # at the rollout's and the trainer's size, grid at its trainer's,
+    # hlg_concept at the concept trainer's and Huizhou at its trainer's
     t0 = time.time()
     cfg, spec, init_cpu = bench.setup('hlg', bench.BENCH_CAPS, 'cpu')
     obs0 = make_batch_fns(spec)[0](broadcast_state(init_cpu, 1))
@@ -2118,6 +2271,7 @@ def smoke(t_start, children, keep_dir):
     obs_t = make_batch_fns(spec_t)[0](broadcast_state(init_t, 1))
     cfg_g, spec_g, init_g_cpu = bench.setup('grid', {}, 'cpu')  # trainer caps
     _, spec_c, init_c = bench.setup('hlg_concept', {}, 'cpu')
+    _, spec_h, init_h = bench.setup('huizhou', {}, 'cpu')   # trainer caps
     real_obs = {
         'rollout': ('hlg_initial_observation', obs0),
         'trainer': ('hlg_initial_observation', obs_t),
@@ -2126,7 +2280,9 @@ def smoke(t_start, children, keep_dir):
         'concept': ('hlg_concept_initial_observation', make_batch_fns(
             spec_c)[0](broadcast_state(init_c, 1))),
         'host_obs': ('grid_host_env_initial_observation',
-                     host_obs_tensors())}
+                     host_obs_tensors()),
+        'huizhou_trainer': ('huizhou_initial_observation', make_batch_fns(
+            spec_h)[0](broadcast_state(init_h, 1)))}
     fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
                                                real_obs, t0)
 
@@ -2303,13 +2459,10 @@ def smoke(t_start, children, keep_dir):
                                  f'!= {expect}')
         if not all(np.isfinite(v) for v in train['losses'].values()):
             raise AssertionError(f'non-finite loss stats {train["losses"]}')
-        # HLG plans land use only (skip_road): the road head's gradient is
-        # exactly zero and Adam leaves it as it was; everything else moves
-        unchanged = sorted(k for k, p in trainer.model.named_parameters()
-                           if torch.equal(p, before[k]))
-        if any(not k.startswith('road_head.') for k in unchanged):
-            raise AssertionError(f'parameters the update left as they were: '
-                                 f'{unchanged}')
+        # HLG plans land use only (skip_road): everything but the road head
+        # moves
+        unchanged = unmoved_parameters(
+            dict(trainer.model.named_parameters()), before)
         if train['episodes'] < 1:
             raise AssertionError('no episode ended in the train rollout')
         if not train['overflow_gate_1pct_pass']:
@@ -2538,7 +2691,7 @@ def smoke(t_start, children, keep_dir):
           batch=kb.BATCHES['dp_rank_update'][0])
 
     # ---- 17-19: the graft entry points and the TAIL phases -------------
-    replay, resume = tail(dev, children)
+    replay, trained = tail(dev, children)
 
     phase('total', t_start, hlg_rollout_env_steps_per_sec=stats[
         'env_steps_per_sec'], hlg_rollout_eager_env_steps_per_sec=gve[
@@ -2554,7 +2707,8 @@ def smoke(t_start, children, keep_dir):
          + two_launches['segment_mean'] + host_launches['segment_mean']
          + dp['kernel_launches']['segment_mean']
          + replay['kernel_launches']['segment_mean']
-         + resume['kernel_launches']['segment_mean'], fwd_err, fwd[shape]),
+         + sum(t['kernel_launches']['segment_mean']
+               for t in trained.values()), fwd_err, fwd[shape]),
         ('segment_mean_backward',
          'none: no TPU counterpart (the Pallas segment-mean kernels of '
          'urban_tpu/ops/pallas/segment_ops.py have no gradient)',
@@ -2563,8 +2717,8 @@ def smoke(t_start, children, keep_dir):
          + two_launches['segment_mean_backward']
          + host_launches['segment_mean_backward']
          + dp['kernel_launches']['segment_mean_backward']
-         + resume['kernel_launches']['segment_mean_backward'], bwd_err,
-         bwd[shape]),
+         + sum(t['kernel_launches']['segment_mean_backward']
+               for t in trained.values()), bwd_err, bwd[shape]),
     ]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',

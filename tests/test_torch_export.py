@@ -9,7 +9,11 @@ the plan state as a JAX trainer checkpoint (a pickle of
 ``plan_state_to_numpy``), and runs each package's tool on its own: the two
 GeoJSON files are equal as parsed JSON, types and coordinates exact, and
 the host scores they print (the reward and every channel) are the same
-text."""
+text. On Huizhou, the scenario of JAX's round-5 record, the port's env
+takes the six actions alone (its lockstep with JAX's env is
+tests/test_torch_scenarios.py's, and JAX's compile of the Huizhou step
+would cost tier-1 ~45 s) and JAX's tool reads the same arrays as a JAX
+plan state."""
 import importlib.util
 import json
 import os
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from torch_parity import build_pair, lockstep
+from urban_tpu.jaxenv import state as jstate
 from urban_tpu.jaxenv.rollout import broadcast_state as j_broadcast
 from urban_tpu_torch.host import city_config
 from urban_tpu_torch.host.io.geojson import load_geojson
@@ -29,7 +34,8 @@ from urban_tpu_torch.host.utils.config import Config as TConfig
 from urban_tpu_torch.rl import trainer as ttrain
 from urban_tpu_torch.tools import export_best_plan
 from urban_tpu_torch.torchenv import state as tstate
-from urban_tpu_torch.torchenv.rollout import broadcast_state
+from urban_tpu_torch.torchenv.rollout import (apply_stage_rewards,
+                                              broadcast_state, make_batch_fns)
 
 torch.set_num_threads(1)
 
@@ -51,35 +57,61 @@ def run_jax_tool(argv, monkeypatch):
     return jax_tool().main()
 
 
+def port_steps(spec, state, rng, steps):
+    """The port's batched env of one env alone: `steps` land-use actions,
+    each drawn with rng from the land-use mask as lockstep draws them."""
+    obs_fn, step_fn = make_batch_fns(spec)
+    for _ in range(steps):
+        action = np.zeros((1, 2), np.int32)
+        action[0, 0] = rng.choice(np.nonzero(obs_fn(state)[6][0].numpy())[0])
+        state, reward, _, info = step_fn(state, torch.as_tensor(action))
+        state, _ = apply_stage_rewards(spec, state, reward, info)
+    return state
+
+
 @pytest.fixture(scope='module')
 def checkpoints(tmp_path_factory):
-    """(JAX checkpoint path, port checkpoint path) of one HLG env's plan
-    after six lockstep land-use actions."""
-    spec_j, s0_j, spec_t, s0_t = build_pair('hlg')
-    _, sj, st = lockstep(spec_j, j_broadcast(s0_j, 1), spec_t,
-                         broadcast_state(s0_t, 1),
-                         [np.random.default_rng(3)], 6, where='hlg',
-                         with_states=True)
-    common = {'best_reward': 3.25, 'best_iteration': 7, 'iteration': 9}
-    d = tmp_path_factory.mktemp('export')
-    j_path, t_path = str(d / 'tpu_best.p'), str(d / 'best.pt')
-    with open(j_path, 'wb') as f:
-        pickle.dump(dict(common, best_plan_state=jax.device_get(
-            jax.tree.map(lambda x: x[0], sj))), f)
-    torch.save(dict(common, best_plan_state=tstate.plan_state_to_numpy(
-        st.map(lambda x: x[0]))), t_path)
-    return j_path, t_path
+    """cfg -> (JAX checkpoint path, port checkpoint path) of one env's plan
+    of the scenario after six land-use actions (HLG: in lockstep with
+    JAX's env; Huizhou: the port's env alone), made once a module."""
+    made = {}
+
+    def get(cfg):
+        if cfg not in made:
+            spec_j, s0_j, spec_t, s0_t = build_pair(cfg)
+            rng = np.random.default_rng(3)
+            if cfg == 'hlg':
+                _, sj, st = lockstep(spec_j, j_broadcast(s0_j, 1), spec_t,
+                                     broadcast_state(s0_t, 1), [rng], 6,
+                                     where=cfg, with_states=True)
+                j_plan = jax.device_get(jax.tree.map(lambda x: x[0], sj))
+                t_plan = tstate.plan_state_to_numpy(st.map(lambda x: x[0]))
+            else:
+                st = port_steps(spec_t, broadcast_state(s0_t, 1), rng, 6)
+                t_plan = tstate.plan_state_to_numpy(st.map(lambda x: x[0]))
+                j_plan = jstate.PlanState(**t_plan)
+            common = {'best_reward': 3.25, 'best_iteration': 7,
+                      'iteration': 9}
+            d = tmp_path_factory.mktemp(f'export_{cfg}')
+            j_path, t_path = str(d / 'tpu_best.p'), str(d / 'best.pt')
+            with open(j_path, 'wb') as f:
+                pickle.dump(dict(common, best_plan_state=j_plan), f)
+            torch.save(dict(common, best_plan_state=t_plan), t_path)
+            made[cfg] = j_path, t_path
+        return made[cfg]
+    return get
 
 
-def test_export_matches_jax_tool(checkpoints, tmp_path, monkeypatch,
+@pytest.mark.parametrize('cfg', ['hlg', 'huizhou'])
+def test_export_matches_jax_tool(cfg, checkpoints, tmp_path, monkeypatch,
                                  capsys):
-    j_ckpt, t_ckpt = checkpoints
+    j_ckpt, t_ckpt = checkpoints(cfg)
     j_out, t_out = str(tmp_path / 'jax.geojson'), str(tmp_path /
                                                       'torch.geojson')
-    assert run_jax_tool(['--cfg', 'hlg', '--ckpt', j_ckpt, '--out', j_out],
+    assert run_jax_tool(['--cfg', cfg, '--ckpt', j_ckpt, '--out', j_out],
                         monkeypatch) == 0
     j_printed = capsys.readouterr().out.splitlines()
-    assert export_best_plan.main(['--cfg', 'hlg', '--ckpt', t_ckpt,
+    assert export_best_plan.main(['--cfg', cfg, '--ckpt', t_ckpt,
                                   '--out', t_out]) == 0
     t_printed = capsys.readouterr().out.splitlines()
 
@@ -172,7 +204,7 @@ def test_phase1_resume_runs_the_next_iteration(checkpoints, tmp_path,
     # episode): the resumed run must carry it
     ckpt = ttrain.read_checkpoint(final)
     assert ckpt['iteration'] == 1 and ckpt['best_plan_state'] is None
-    with open(checkpoints[1], 'rb') as f:
+    with open(checkpoints('hlg')[1], 'rb') as f:
         plan = torch.load(f, weights_only=False)['best_plan_state']
     ckpt.update(best_plan_state=plan, best_reward=3.25, best_iteration=1)
     torch.save(ckpt, final)

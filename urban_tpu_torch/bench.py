@@ -194,11 +194,13 @@ def run_failure_replay(num_envs: int = 256, num_steps: int = 30,
 
 def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                  seed: int = 0, eval_envs: int = 16, root_dir: str = None,
-                 name: str = 'hlg', eager: bool = False):
+                 name: str = 'hlg', eager: bool = False,
+                 encoder: str = 'sgnn'):
     """The PPO trainer of scenario `name` at the JAX trainer's own
     capacities; its run logs go under root_dir (default: the temp
     directory). eager: collect, eval and update step eagerly on the card
-    instead of replaying their graphs."""
+    instead of replaying their graphs. encoder: 'sgnn' or the MLP
+    ablation's 'mlp'."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.rl.trainer import Trainer
     set_precision_flags()
@@ -206,7 +208,8 @@ def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                                         'urban_tpu_torch')
     cfg = Config(name, seed, tmp=False, root_dir=root_dir)
     return Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
-                   eval_envs=eval_envs, device=device, eager=eager)
+                   eval_envs=eval_envs, device=device, eager=eager,
+                   encoder=encoder)
 
 
 def measure_train_iteration(trainer) -> dict:

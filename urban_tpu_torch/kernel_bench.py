@@ -31,21 +31,23 @@ B = 256
 # graphs, a large graph at the widest supported width, the grid trainer's
 # graph (its road stage, 2688 feature slots), the concept scenarios'
 # trainer graph (4000 edge slots), the graph of the grid's two-phase
-# road phase (the frozen plan of chip_smoke.py's seed-0 run: 1600 slots)
-# and the host environment's observation (grid.yaml's max_num_nodes and
-# max_num_edges, the agent's policy step and update)
+# road phase (the frozen plan of chip_smoke.py's seed-0 run: 1600 slots),
+# the host environment's observation (grid.yaml's max_num_nodes and
+# max_num_edges, the agent's policy step and update) and the Huizhou
+# trainer's graph (1472 feature slots)
 SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('large_graph', 8192, 4096, 64), ('grid_trainer', 3000, 2688, 16),
           ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16),
-          ('host_obs', 3000, 1000, 16))
+          ('host_obs', 3000, 1000, 16), ('huizhou_trainer', 3000, 1472, 16))
 # the batches a shape is timed at, where not only B: the failure replay
 # re-collects the HLG rollout at a quarter of the bench's batch; the host
 # agent's update takes minibatches of B rows, its policy step one
 # observation; a data-parallel rank of two holds about half of each B-row
 # minibatch of the HLG trainer (its graph, not in SHAPES: chip_smoke.py
-# checks it)
+# checks it); the Huizhou trainer updates on minibatches of B rows and
+# collects with its config's 192 envs
 BATCHES = {'rollout': (B, B // 4), 'host_obs': (B, 1),
-           'dp_rank_update': (B // 2,)}
+           'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192)}
 DP_RANK_UPDATE = ('dp_rank_update', 3000, 1344, 16)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order

@@ -1,4 +1,4 @@
-"""The learning-parity run: the JAX package's HLG recipe (BASELINE.md,
+"""The learning-parity run: the JAX package's PPO recipe (BASELINE.md,
 "PPO training on TPU") through the port's trainer CLI, in chunks.
 
 Runs ``urban_tpu_torch.rl.trainer.main`` with the recipe's flags
@@ -9,8 +9,11 @@ Runs ``urban_tpu_torch.rl.trainer.main`` with the recipe's flags
 for iterations [start, --iterations), start being 0 or the iteration after
 the ``--resume`` checkpoint's. A resumed chunk restarts the env batch and
 the random stream from the seed, as the JAX trainer does. Flags after the
-tool's own go to the trainer after the recipe's (a CPU rehearsal:
-``--device cpu --num_envs 2 --eval_envs 1 --rollout_len 8``).
+tool's own go to the trainer after the recipe's, and argparse keeps the
+last value of a flag, so they override it. Another scenario: its
+``--cfg`` and ``--num_envs`` after the tool's flags (Huizhou's round-5
+recipe: ``--cfg huizhou --num_envs 192``, 300 iterations). A CPU
+rehearsal: ``--device cpu --num_envs 2 --eval_envs 1 --rollout_len 8``.
 
 ``--init_params FILE`` starts the run from the parameters of an .npz of a
 Flax tree (``results/hlg_jax_init_seed111.npz``: the JAX trainer's initial
@@ -31,8 +34,11 @@ other entry points use it.
 (a chunk cut by a time limit keeps what it ran): its TrainStats
 (T_sample, T_update, T_eval, rewards, losses, failure causes, kernel
 launches), the value-vs-Monte-Carlo RMS and the best eval so far; then
-one summary record: the chunk's wall seconds, its iterations, the peak
-device memory, and the card's name and power limit (nvidia-smi).
+one summary record: the flags as given (``argv``, the recipe's first),
+the values the trainer ran with (``effective``: cfg, envs, rollout window,
+eval envs, seed, encoder and its operands, tau, lr, normalized
+advantages), the chunk's wall seconds, its iterations, the peak device
+memory, and the card's name and power limit (nvidia-smi).
 
     python -m urban_tpu_torch.tools.parity_run --iterations 80 \\
         --root_dir DIR --stats chunk1.jsonl
@@ -102,6 +108,20 @@ def bf16_linear_forward(self, x):
     return Bf16OperandLinear.apply(x, self.weight, self.bias)
 
 
+def effective_values(trainer) -> dict:
+    """What the trainer ran with, read after the CLI's parsing."""
+    cfg = trainer.cfg
+    return {'cfg': cfg.id, 'num_envs': trainer.num_envs,
+            'rollout_len': trainer.rollout_len,
+            'eval_envs': trainer.eval_envs, 'seed': cfg.seed,
+            'encoder': trainer.encoder,
+            'encoder_operands': trainer.encoder_operands,
+            'tau': cfg.tau, 'lr': cfg.lr,
+            'normalize_advantages': bool(cfg.agent_specs.get(
+                'normalize_advantages', False)),
+            'device': str(trainer.device)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--iterations', type=int, required=True,
@@ -156,7 +176,8 @@ def main(argv=None) -> dict:
         wall = time.perf_counter() - t0
         cuda = trainer.device.type == 'cuda'
         summary = {
-            'argv': argv, 'init_params': a.init_params or None,
+            'argv': argv, 'effective': effective_values(trainer),
+            'init_params': a.init_params or None,
             'bf16_linear_operands': a.bf16_linear_operands, 'wall_s': wall,
             'iterations': [h.iteration for h in trainer.history],
             'best_reward': trainer.best_reward,
