@@ -254,10 +254,12 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                     'library_ms': kb.cuda_time_ms(lib),
                     'bound_ms': kb.bound_ms(kb.forward_bytes(edges, mask, n,
                                                              d))}
+            plan = segment_ops.forward_plan(B, n, e, d)
             phase('segment_mean_vs_plain', t0, shape=shape, graph=gname,
-                  BEND=[B, e, n, d], segment_mean_fits=bool(
-                      segment_ops.load_library('segment_mean')
-                      .segment_mean_fits(n, e)),
+                  BEND=[B, e, n, d], plan=plan._asdict(),
+                  resident_per_sm=segment_ops.load_library('segment_mean')
+                  .segment_mean_resident(d, plan.threads, int(plan.staged),
+                                         plan.shared_bytes),
                   max_abs_err=err, bitwise_repeat=True,
                   counts_equal=True, same_bits_as_cpu_plain=same_bits,
                   **times)

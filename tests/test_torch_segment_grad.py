@@ -184,10 +184,22 @@ def test_backward_wrapper_rejects_bad_inputs(name):
         segment_ops.segment_mean_backward(g, counts, edges, mask)
 
 
-# the largest N the forward kernel takes: (3 N + 1 + 4 E) ints of shared
-# memory and one per warp of its 512 threads within one block's limit
-# (csrc/segment_mean.cu, shared_bytes and segment_mean_fits), at E = 0
-FORWARD_MAX_NODES = (segment_ops.SHARED_BYTES_PER_BLOCK // 4 - 1 - 16) // 3
+def _forward_max_nodes():
+    """The largest N the forward kernel takes (segment_ops.forward_plan:
+    a CTA of 1024 threads holds a word a warp, 6 bytes a node and 8 an
+    edge of shared memory within one block's limit), at E = 0."""
+    lo, hi = 1, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            segment_ops.forward_plan(1, mid, 0, 8)
+            lo = mid
+        except ValueError:
+            hi = mid
+    return lo
+
+
+FORWARD_MAX_NODES = _forward_max_nodes()
 
 
 @pytest.mark.parametrize('width', segment_ops.SUPPORTED_DIMS)

@@ -168,28 +168,174 @@ def test_counts_match_pallas(case):
 @pytest.mark.gpu
 def test_kernel_on_card():
     """Forward kernel at the trainer's graph size (E=3000, N=1344, D=16) on
-    a bipartite graph: the CPU plain version's bits and counts, within
-    ATOL of the plain version on the card, bitwise repeatable, and the
-    kernel the no-gradient segment_mean runs (skips without a CUDA device;
-    chip_smoke.py runs the same checks at all three main-path shapes)."""
+    a bipartite graph, at B = 8, 1 and 64 with forward_plan's plan and at
+    B = 8 also with one CTA an element, with a cluster of 8 and staged in
+    shared memory: the CPU plain version's bits and counts, within ATOL of
+    the plain version on the card, bitwise repeatable, and the kernel the
+    no-gradient segment_mean runs (skips without a CUDA device;
+    chip_smoke.py runs the same checks at every shape and batch of
+    kernel_bench)."""
     if not torch.cuda.is_available():
         pytest.skip('requires a CUDA device')
-    h, edges, mask, N = _graph('masked_sentinel', B=8, E=3000, N=1344, D=16)
     dev = torch.device('cuda')
-    cpu = (torch.as_tensor(h), torch.as_tensor(edges), torch.as_tensor(mask))
-    args = tuple(x.to(dev) for x in cpu)
-    before = segment_ops.launches['segment_mean']
-    out, counts = segment_ops.segment_mean_counts(*args, N)
-    again, _ = segment_ops.segment_mean_counts(*args, N)
-    no_grad = segment_ops.segment_mean(*args, N)
-    ref = segment_ops.segment_mean_ref(*args, N)
-    cpu_out, cpu_counts = segment_ops.segment_mean_counts_ref(*cpu, N)
-    torch.cuda.synchronize()
-    assert segment_ops.launches['segment_mean'] == before + 3
-    assert torch.equal(out, again) and torch.equal(out, no_grad)
-    assert torch.equal(out.cpu(), cpu_out)
-    assert torch.equal(counts.cpu(), cpu_counts)
-    assert float((out - ref).abs().max()) <= ATOL
+    E, N, D = 3000, 1344, 16
+    runs = [(b, None) for b in (8, 1, 64)] + [
+        (8, segment_ops.ForwardPlan(s, t, g, segment_ops.forward_shared_bytes(
+            N, E, D, s, t, g))) for s, t, g in ((1, 512, False),
+                                                (8, 1024, False),
+                                                (1, 1024, True))]
+    kinds = set()
+    for B, plan in runs:
+        h, edges, mask, N = _graph('masked_sentinel', B=B, E=E, N=N, D=D)
+        cpu = (torch.as_tensor(h), torch.as_tensor(edges),
+               torch.as_tensor(mask))
+        args = tuple(x.to(dev) for x in cpu)
+        p = plan or segment_ops.forward_plan(B, N, E, D)
+        kinds.add((p.split > 1, p.staged))
+        before = segment_ops.launches['segment_mean']
+        out, counts = segment_ops.segment_mean_counts(*args, N, plan)
+        again, _ = segment_ops.segment_mean_counts(*args, N, plan)
+        no_grad = segment_ops.segment_mean(*args, N)
+        ref = segment_ops.segment_mean_ref(*args, N)
+        cpu_out, cpu_counts = segment_ops.segment_mean_counts_ref(*cpu, N)
+        torch.cuda.synchronize()
+        assert segment_ops.launches['segment_mean'] == before + 3
+        assert torch.equal(out, again) and torch.equal(out, no_grad)
+        assert torch.equal(out.cpu(), cpu_out), (B, plan)
+        assert torch.equal(counts.cpu(), cpu_counts), (B, plan)
+        assert float((out - ref).abs().max()) <= ATOL
+    assert kinds == {(False, False), (True, False), (False, True)}
+
+
+def _bench_cases():
+    from urban_tpu_torch import kernel_bench as kb
+    return [(name, b, n, e, d) for name, e, n, d in kb.SHAPES + (
+        kb.DP_RANK_UPDATE,) for b in kb.BATCHES.get(name, (kb.B,))]
+
+
+def _shared(n, e, d, split, threads, staged):
+    return segment_ops.forward_shared_bytes(n, e, d, split, threads, staged)
+
+
+def _resident(plan):
+    """CTAs of a plan one SM is sure to hold: the kernel's launch bounds
+    keep 1024 threads an SM within the registers, and the shared memory
+    (with the static bytes and what the runtime reserves) allows the
+    rest."""
+    return min(1024 // plan.threads, segment_ops.SHARED_BYTES_PER_SM // (
+        plan.shared_bytes + segment_ops.FORWARD_STATIC_BYTES
+        + segment_ops.SHARED_BYTES_RESERVED))
+
+
+def test_forward_plan_fits_every_bench_shape():
+    """Every shape and batch that kernel_bench and chip_smoke.py time gets
+    a plan: a split of 1-8 CTAs (1 where staged), a block size the kernel
+    is built for, and the shared memory forward_shared_bytes gives, with
+    the kernel's static bytes within one CTA's 232,448."""
+    for name, b, n, e, d in _bench_cases():
+        plan = segment_ops.forward_plan(b, n, e, d)
+        assert plan.split in segment_ops.FORWARD_SPLITS, name
+        assert plan.threads in segment_ops.FORWARD_THREADS, name
+        assert not plan.staged or plan.split == 1
+        assert plan.shared_bytes == _shared(n, e, d, plan.split,
+                                            plan.threads, plan.staged)
+        assert 0 < plan.shared_bytes + segment_ops.FORWARD_STATIC_BYTES \
+            <= 232448, (name, b, plan)
+
+
+def test_forward_plan_runs_in_one_wave():
+    """Where the batch fits 132 SMs, the plan reads h from global memory
+    and runs the batch in one wave of 1024-thread CTAs, with the largest
+    split (at most 8) whose CTAs fit. Past 132 it stages each element's
+    rows in one CTA of 1024 threads where they fit beside the CSR, else it
+    takes two CTAs of 512 threads an element, two an SM. B = 1 gets a
+    cluster of 8, the evals' B = 64 a split of 2."""
+    sms = segment_ops.NUM_SMS
+    for name, b, n, e, d in _bench_cases():
+        plan = segment_ops.forward_plan(b, n, e, d)
+        staged = _shared(n, e, d, 1, 1024, True)
+        if b > sms:
+            fits = staged + segment_ops.FORWARD_STATIC_BYTES <= 232448
+            assert plan.staged == fits, (name, b, plan)
+            assert plan[:3] == ((1, 1024, True) if fits else (2, 512, False))
+            assert _resident(plan) == (1 if fits else 2)
+            continue
+        assert not plan.staged and plan.threads == 1024, (name, b, plan)
+        assert b * plan.split <= sms * _resident(plan)
+        assert plan.split == max(s for s in segment_ops.FORWARD_SPLITS
+                                 if b * s <= sms), (name, b, plan)
+    assert segment_ops.forward_plan(1, 1344, 3000, 16).split == 8
+    assert segment_ops.forward_plan(64, 1344, 3000, 16).split == 2
+    assert segment_ops.forward_plan(128, 1344, 3000, 16).split == 1
+    assert segment_ops.forward_plan(256, 1344, 3000, 16).staged
+    assert segment_ops.forward_plan(256, 1344, 4000, 16)[:3] == (2, 512, False)
+
+
+def _pr14_takes(n, e):
+    """The graphs the one-CTA-an-element kernel before forward_plan took:
+    (3 N + 1 + 4 E) ints and one per warp of its 512 threads in one
+    block's 232,448 bytes."""
+    return (3 * n + 1 + 4 * e) * 4 + 16 * 4 <= 232448
+
+
+def _takes(n, e, d):
+    return (2 * e + 1 <= 0xFFFF and _shared(n, e, d, 1, 1024, False)
+            + segment_ops.FORWARD_STATIC_BYTES <= 232448)
+
+
+def test_forward_plan_accepts_every_graph_taken_before():
+    """Every (N, E) that the kernel took before forward_plan is still
+    taken, at every batch and width, on a grid of E with the largest N
+    each took, and forward_plan raises ValueError for the graphs it does
+    not take (N past its own limit, no nodes, keys past 16 bits)."""
+    for e in range(0, 14600, 97):
+        n_old = max((n for n in (
+            (232448 - 64 - 4 - 16 * e) // 12 - k for k in range(3))
+            if n > 0 and _pr14_takes(n, e)), default=0)
+        if n_old == 0:
+            continue
+        for n in (1, n_old // 2, n_old):
+            for d in segment_ops.SUPPORTED_DIMS:
+                assert _takes(n, e, d)
+                for b in (1, 64, 192, 256):
+                    plan = segment_ops.forward_plan(b, n, e, d)
+                    assert plan.shared_bytes <= 232448
+        lo, hi = n_old, 10 ** 6   # the largest N taken at this E
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if _takes(mid, e, 16) else (lo, mid)
+        segment_ops.forward_plan(256, lo, e, 16)
+        with pytest.raises(ValueError):
+            segment_ops.forward_plan(256, lo + 1, e, 16)
+    with pytest.raises(ValueError):
+        segment_ops.forward_plan(1, 0, 10, 16)
+    with pytest.raises(ValueError):
+        segment_ops.forward_plan(1, 10, 32768, 16)
+    with pytest.raises(ValueError):
+        segment_ops.forward_plan(1, 10, 10, 12)
+
+
+def test_graph_not_taken_raises_before_any_launch(monkeypatch):
+    """On a CUDA tensor a graph that forward_plan does not take raises
+    ValueError before anything is allocated or launched (the card's path
+    with the device stood in for, so that it runs here)."""
+    n = 1
+    while _takes(n * 2, 4, 8):
+        n *= 2
+    while _takes(n + 1, 4, 8):
+        n += 1
+    h = torch.zeros((1, 4, 8))
+    edges = torch.zeros((1, 4, 2), dtype=torch.int32)
+    mask = torch.ones((1, 4), dtype=torch.bool)
+    called = []
+    monkeypatch.setattr(segment_ops, '_device',
+                        lambda t: torch.device('cuda'))
+    monkeypatch.setattr(segment_ops, '_launch',
+                        lambda *a: called.append(a))
+    before = dict(segment_ops.launches)
+    with pytest.raises(ValueError):
+        segment_ops.segment_mean_counts(h, edges, mask, n + 1)
+    assert not called and segment_ops.launches == before
 
 
 @pytest.mark.parametrize('B,E', [(0, 96), (3, 0), (0, 0)])

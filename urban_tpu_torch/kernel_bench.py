@@ -6,18 +6,24 @@ function and the memory bound.
 
 ``--root`` imports ``urban_tpu_torch`` from another checkout (an older
 commit unpacked with ``git archive``), so that two trees can be timed on one
-card, in turns, with the same inputs. One JSON line per (shape, kernel),
-then the forward and the backward kernel at every width on the trainer's
-graph, then the backward at each shape with every column tile that fits.
+card, in turns, with the same inputs; the forward rows' SHA-256 digests of
+the mean and the counts then show whether the two trees give the same bits.
+One JSON line per (shape, batch, kernel), then the forward kernel at every
+width on the trainer's graph, the forward at each shape and batch with
+every launch plan that fits, the backward at every width, then the backward
+at each shape with every column tile that fits (``--measure_only``: the
+first lines alone).
 ``chip_smoke.py`` takes its shapes, inputs, bounds and library calls from
 here. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
+import subprocess
 import sys
 import time
 from typing import Callable, Tuple
@@ -40,14 +46,16 @@ SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16),
           ('host_obs', 3000, 1000, 16), ('huizhou_trainer', 3000, 1472, 16))
 # the batches a shape is timed at, where not only B: the failure replay
-# re-collects the HLG rollout at a quarter of the bench's batch; the host
-# agent's update takes minibatches of B rows, its policy step one
-# observation; a data-parallel rank of two holds about half of each B-row
-# minibatch of the HLG trainer (its graph, not in SHAPES: chip_smoke.py
-# checks it); the Huizhou trainer updates on minibatches of B rows and
-# collects with its config's 192 envs
-BATCHES = {'rollout': (B, B // 4), 'host_obs': (B, 1),
-           'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192)}
+# re-collects the HLG rollout at a quarter of the bench's batch; the HLG
+# and the Huizhou parity recipes evaluate 64 envs; the host agent's update
+# takes minibatches of B rows, its policy step one observation; a
+# data-parallel rank of two holds about half of each B-row minibatch of
+# the HLG trainer (its graph, not in SHAPES: chip_smoke.py checks it); the
+# Huizhou trainer updates on minibatches of B rows and collects with its
+# config's 192 envs, as the grid trainer collects
+BATCHES = {'rollout': (B, B // 4), 'trainer': (B, 64), 'host_obs': (B, 1),
+           'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192, 64),
+           'grid_trainer': (B, 192)}
 DP_RANK_UPDATE = ('dp_rank_update', 3000, 1344, 16)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order
@@ -246,11 +254,28 @@ def library_backward(grad, counts, edges, mask
     return call, call().reshape(b, e, d)
 
 
+def digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes: equal digests from two trees are
+    equal bits."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def forward_plan_of(segment_ops, b, n, e, d):
+    """The forward's launch plan as a dict, where the tree has one (trees
+    before forward_plan launched one CTA of 512 threads an element)."""
+    plan = getattr(segment_ops, 'forward_plan', None)
+    return plan(b, n, e, d)._asdict() if plan else None
+
+
 def measure(segment_ops, rng, dev, reps=20):
     """Every kernel of segment_ops at every shape of SHAPES and at
     DP_RANK_UPDATE (at each of its BATCHES) on random bipartite graphs:
     error against the plain version, and the times of the kernel, the
-    plain version and the library call, with the bound."""
+    plain version and the library call, with the bound and the share of it
+    the kernel's device time reaches; each forward row also carries the
+    plan and the SHA-256 of its mean and counts (equal across trees where
+    the bits are)."""
     # trees before the one forward kernel named the counts-returning
     # forward segment_mean_edge, and ran another kernel for segment_mean
     counts_fn = getattr(segment_ops, 'segment_mean_counts', None) or \
@@ -288,6 +313,10 @@ def measure(segment_ops, rng, dev, reps=20):
                 lib_bwd, lib_dh,
                 lambda: segment_ops.segment_mean_backward_ref(
                     g, counts, edges, mask))
+            out, cnt = counts_fn(h, edges, mask, n)
+            forward = {'plan': forward_plan_of(segment_ops, b, n, e, d),
+                       'out_sha256': digest(out),
+                       'counts_sha256': digest(cnt)}
             for name, (fn, kernel, want, bnd, lib, lib_res,
                        plain) in cases.items():
                 got = fn()
@@ -296,16 +325,71 @@ def measure(segment_ops, rng, dev, reps=20):
                 if not (err <= TOL and lib_err <= TOL):
                     raise AssertionError(f'{shape} {name}: error {err}, '
                                          f'library {lib_err} > {TOL}')
+                device_ms = device_time_ms(fn, kernel, reps)
                 rows.append({
                     'shape': shape, 'B': b, 'E': e, 'N': n, 'D': d,
                     'kernel': name, 'max_abs_err': err,
                     'equal_to_plain': bool(torch.equal(got, want)),
                     'library_max_abs_err': lib_err,
                     'ms': cuda_time_ms(fn, reps),
-                    'device_ms': device_time_ms(fn, kernel, reps),
+                    'device_ms': device_ms,
                     'plain_ms': cuda_time_ms(plain, reps),
                     'library_ms': cuda_time_ms(lib, reps),
-                    'bound_ms': bnd})
+                    'bound_ms': bnd,
+                    'bound_share': bnd / device_ms if device_ms else None,
+                    **(forward if kernel == FORWARD_KERNEL else {})})
+    return rows
+
+
+def forward_plans(segment_ops, b, n, e, d):
+    """Every launch plan of the forward kernel whose shared memory fits one
+    CTA: each split at each block size reading h from global memory, and
+    the staged plan (one CTA of 1024 threads an element)."""
+    plans = [segment_ops.ForwardPlan(split, threads, False,
+                                     segment_ops.forward_shared_bytes(
+                                         n, e, d, split, threads, False))
+             for split in segment_ops.FORWARD_SPLITS
+             for threads in segment_ops.FORWARD_THREADS]
+    plans.append(segment_ops.ForwardPlan(1, 1024, True,
+                                         segment_ops.forward_shared_bytes(
+                                             n, e, d, 1, 1024, True)))
+    return [p for p in plans if p.shared_bytes
+            + segment_ops.FORWARD_STATIC_BYTES
+            <= segment_ops.SHARED_BYTES_PER_BLOCK]
+
+
+def forward_plan_sweep(segment_ops, rng, dev, reps=20):
+    """The forward kernel at every shape of SHAPES and each of its
+    BATCHES with every launch plan that fits (forward_plans): what
+    forward_plan's choice ('chosen') is worth against the others; each
+    must give the chosen plan's bits. Trees without launch plans have
+    nothing to sweep."""
+    if getattr(segment_ops, 'ForwardPlan', None) is None:
+        return []
+    rows = []
+    for shape, e, n, d, b in ((*s, b) for s in SHAPES
+                              for b in BATCHES.get(s[0], (B,))):
+        edges, mask = random_graph(rng, b, e, n)
+        h = torch.as_tensor(rng.normal(size=(b, e, d)), dtype=torch.float32)
+        h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
+        chosen = segment_ops.forward_plan(b, n, e, d)
+        want = segment_ops.segment_mean_counts(h, edges, mask, n)
+        bnd = bound_ms(forward_bytes(edges, mask, n, d))
+        for plan in forward_plans(segment_ops, b, n, e, d):
+            def fn(plan=plan):
+                return segment_ops.segment_mean_counts(h, edges, mask, n,
+                                                       plan)
+            got = fn()
+            device_ms = device_time_ms(fn, FORWARD_KERNEL, reps)
+            rows.append({
+                'shape': f'{shape}_forward_plan_sweep', 'B': b, 'E': e,
+                'N': n, 'D': d, 'kernel': 'segment_mean',
+                'plan': plan._asdict(), 'chosen': plan == chosen,
+                'equal_to_chosen': bool(torch.equal(got[0], want[0])
+                                        and torch.equal(got[1], want[1])),
+                'ms': cuda_time_ms(fn, reps), 'device_ms': device_ms,
+                'bound_ms': bnd,
+                'bound_share': bnd / device_ms if device_ms else None})
     return rows
 
 
@@ -325,6 +409,7 @@ def width_sweep(segment_ops, rng, dev, reps=20):
             return segment_ops.segment_mean(h, edges, mask, n)
         rows.append({'shape': 'trainer_width_sweep', 'B': B, 'E': e, 'N': n,
                      'D': d, 'kernel': 'segment_mean',
+                     'plan': forward_plan_of(segment_ops, B, n, e, d),
                      'ms': cuda_time_ms(fn, reps),
                      'device_ms': device_time_ms(fn, FORWARD_KERNEL, reps),
                      'bound_ms': bound_ms(forward_bytes(edges, mask, n, d))})
@@ -408,6 +493,8 @@ def main(argv=None):
                     help='checkout whose urban_tpu_torch is timed')
     ap.add_argument('--out', default=None, help='also write the lines here')
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--measure_only', action='store_true',
+                    help='only the rows at SHAPES x BATCHES, no sweeps')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_bench: no CUDA device')
@@ -417,12 +504,19 @@ def main(argv=None):
     from urban_tpu_torch.ops import segment_ops
     segment_ops.build_libraries()
     dev = torch.device('cuda', 0)
-    rng = np.random.default_rng(args.seed)
-    rows = (measure(segment_ops, rng, dev) + width_sweep(segment_ops, rng, dev)
-            + backward_width_sweep(segment_ops, rng, dev)
-            + backward_tile_sweep(segment_ops, rng, dev))
+    parts = [measure]
+    if not args.measure_only:
+        parts += [width_sweep, forward_plan_sweep, backward_width_sweep,
+                  backward_tile_sweep]
+    # a generator a part, so that each part's inputs are the same in trees
+    # that skip another part
+    rows = [r for i, part in enumerate(parts) for r in part(
+        segment_ops, np.random.default_rng([args.seed, i]), dev)]
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader', '--id=0'],
+                          capture_output=True, text=True).stdout.strip()
     lines = [json.dumps({'root': root, 'gpu': torch.cuda.get_device_name(0),
-                         **r}) for r in rows]
+                         'card': card, **r}) for r in rows]
     print('\n'.join(lines), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -8,7 +8,9 @@ gradient.
   ``segment_mean_counts`` and drops the counts.
 * ``segment_mean_counts`` returns the mean and the per-node counts through
   the forward kernel ``csrc/segment_mean.cu``, the port of both Pallas
-  kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``).
+  kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``),
+  launched with the split of each batch element over CTAs, the block size
+  and the shared memory that ``forward_plan`` chooses.
 * ``SegmentMean`` is the autograd function: its forward is
   ``segment_mean_counts``, its backward ``segment_mean_backward``
   (``csrc/segment_mean_backward.cu``, no TPU counterpart), launched with
@@ -35,6 +37,7 @@ this package only, into ``urban_tpu_torch/build/``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,10 +51,11 @@ from torch.autograd.function import once_differentiable
 EPSILON = 1e-6
 SUPPORTED_DIMS = (8, 16, 32, 64)
 # Hopper (H100): shared memory one block may opt in to, an SM's shared
-# memory, and what the runtime reserves per resident block
+# memory, and what the runtime reserves per resident block; SMs
 SHARED_BYTES_PER_BLOCK = 232448
 SHARED_BYTES_PER_SM = 233472
 SHARED_BYTES_RESERVED = 1024
+NUM_SMS = 132
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, 'csrc')
@@ -63,8 +67,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source in csrc/, {exported C function: argtypes})
 KERNELS = {
     'segment_mean': ('segment_mean.cu', {
-        'segment_mean_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        'segment_mean_fits': [_I, _I]}),
+        'segment_mean_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
+        'segment_mean_resident': [_I, _I, _I, _I]}),
     'segment_mean_backward': ('segment_mean_backward.cu', {
         'segment_mean_backward_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _P]}),
@@ -196,6 +201,73 @@ def _check(h_edges, edges, edge_mask, num_nodes):
         raise ValueError('h_edges must be contiguous')
 
 
+class ForwardPlan(NamedTuple):
+    """Launch of csrc/segment_mean.cu: each batch element's nodes split
+    over `split` CTAs (one thread-block cluster where split > 1) of
+    `threads` threads, each with `shared_bytes` of shared memory; where
+    `staged`, one CTA an element first copies the element's rows of h into
+    shared memory (one bulk copy, while it builds its CSR) and gathers from
+    there, else the gather reads the rows from global memory."""
+    split: int
+    threads: int
+    staged: bool
+    shared_bytes: int
+
+
+FORWARD_SPLITS = (1, 2, 4, 8)
+FORWARD_THREADS = (512, 1024)
+FORWARD_STATIC_BYTES = 16   # the kernel's static shared memory (an mbarrier)
+
+
+def forward_shared_bytes(num_nodes: int, num_edges: int, width: int,
+                         split: int, threads: int, staged: bool) -> int:
+    """Dynamic shared memory of one CTA of the forward kernel (shared_bytes
+    in csrc/segment_mean.cu): where staged, E rows of D floats; then a word
+    a warp and a word a node of its range, 16-bit bucket starts, 2 E keys
+    and E local endpoints of each kind."""
+    m = -(-int(num_nodes) // split)
+    size = (int(num_edges) * width * 4 if staged else 0) + \
+        4 * (threads // 32 + m) + 2 * (m + 1 + 4 * int(num_edges))
+    return -(-size // 16) * 16
+
+
+def _fits(size: int) -> bool:
+    return size + FORWARD_STATIC_BYTES <= SHARED_BYTES_PER_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(batch: int, num_nodes: int, num_edges: int,
+                 width: int) -> ForwardPlan:
+    """The forward kernel's launch plan for B batch elements of N nodes, E
+    edges and D columns. A graph is taken where one CTA of 1024 threads
+    holds its CSR (at least every graph the kernel before this plan took)
+    and its keys 2 e + 1 fit 16 bits; anything else raises ValueError.
+    Where the batch fills the card (B > NUM_SMS) and the element's rows of
+    h fit beside its CSR, each element is staged in one CTA of 1024
+    threads, so that h is read once, in order, while the CSR is built.
+    Else the gather reads h from global memory: with 1024 threads and the
+    largest split of 8, 4, 2 or 1 CTAs an element that keeps the batch in
+    one wave of NUM_SMS CTAs, or, past NUM_SMS, with two CTAs of 512
+    threads an element, two an SM (faster at B 256 than one CTA an element
+    in one wave: kernel_bench's plan sweep times every plan)."""
+    n, e, b = int(num_nodes), int(num_edges), int(batch)
+    if width not in SUPPORTED_DIMS:
+        raise ValueError(f'feature width {width} not in {SUPPORTED_DIMS}')
+    if (n <= 0 or e < 0 or 2 * e + 1 > 0xFFFF or not _fits(
+            forward_shared_bytes(n, e, width, 1, 1024, False))):
+        raise ValueError(f'segment_mean: a graph of {n} nodes and {e} edges '
+                         f'does not fit in one CTA\'s shared memory')
+    staged = forward_shared_bytes(n, e, width, 1, 1024, True)
+    if b > NUM_SMS and _fits(staged):
+        return ForwardPlan(1, 1024, True, staged)
+    for split in FORWARD_SPLITS[::-1]:   # each fits where split 1 does
+        if b * split <= NUM_SMS:
+            return ForwardPlan(split, 1024, False, forward_shared_bytes(
+                n, e, width, split, 1024, False))
+    return ForwardPlan(2, 512, False,
+                       forward_shared_bytes(n, e, width, 2, 512, False))
+
+
 class BackwardPlan(NamedTuple):
     """Launch of csrc/segment_mean_backward.cu: each block of `threads`
     threads stages `tile` columns of every node row in `shared_bytes` of
@@ -280,11 +352,13 @@ def segment_mean_backward_ref(grad_out: torch.Tensor, counts: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
-                        edge_mask: torch.Tensor, num_nodes: int
+                        edge_mask: torch.Tensor, num_nodes: int,
+                        plan: ForwardPlan = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment mean (B, N, D) and per-node counts (B, N), without a
-    gradient. CUDA tensors run csrc/segment_mean.cu, CPU tensors the plain
-    version."""
+    gradient. CUDA tensors run csrc/segment_mean.cu with `plan` (default:
+    forward_plan's, which raises ValueError for a graph the kernel does not
+    take; kernel_bench times the others), CPU tensors the plain version."""
     _check(h_edges, edges, edge_mask, num_nodes)
     dev = _device(h_edges)
     N = int(num_nodes)
@@ -297,16 +371,13 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
     if h_edges.data_ptr() % 16 or edges.data_ptr() % 8:
         raise ValueError('segment_mean: h_edges must be 16-byte and edges '
                          '8-byte aligned')
+    plan = plan or forward_plan(B, N, E, D)
     with torch.cuda.device(dev):
-        if not load_library('segment_mean').segment_mean_fits(N, E):
-            raise ValueError(f'segment_mean: a graph of {N} nodes and {E} '
-                             f'edges does not fit in one block\'s shared '
-                             f'memory')
         out = torch.empty((B, N, D), dtype=torch.float32, device=dev)
         counts = torch.empty((B, N), dtype=torch.float32, device=dev)
         _launch('segment_mean', 'segment_mean_f32', h_edges.data_ptr(),
                 edges.data_ptr(), edge_mask.data_ptr(), out.data_ptr(),
-                counts.data_ptr(), B, E, N, D, _stream(dev))
+                counts.data_ptr(), B, E, N, D, *plan, _stream(dev))
     return out, counts
 
 
