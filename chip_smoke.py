@@ -70,8 +70,9 @@ the learning-parity recipe's trainer CLI at its full batch, 256 envs x
 50 steps, for two iterations and a resumed third, with exact launches
 every iteration, then the best plan's export, read back and host-scored;
 the same recipe on Huizhou through tools/parity_run.py, 16 envs x 50
-steps for one iteration, exact launches, then its export; one HLG
-iteration of the MLP encoder's trainer, no launch, and its eval),
+steps for one iteration, exact launches, then its export; the same
+tool with --encoder mlp on HLG, 32 envs x 50 steps for one iteration,
+no launch, then its export),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -167,8 +168,10 @@ TGE_ENVS, TGE_EVAL_ENVS, TGE_ITERATIONS = 32, 4, 2
 # episode cap of 50 steps kept: 3 minibatches of 256 rows an epoch) and
 # from 64 greedy eval envs to HZ_EVAL_ENVS, one iteration
 HZ_ENVS, HZ_EVAL_ENVS = 16, 4
-# the MLP encoder's train path: one HLG iteration, TRAIN_LEN steps (HLG
-# episodes end), a few greedy eval envs
+# the MLP ablation's path: the parity recipe's CLI with --encoder mlp on
+# HLG, cut from 256 envs to MLP_ENVS (the 50-step window kept: 6
+# minibatches of 256 rows an epoch) and from 64 greedy eval envs to
+# MLP_EVAL_ENVS, one iteration
 MLP_ENVS, MLP_EVAL_ENVS = 32, 4
 
 
@@ -677,6 +680,23 @@ def entry_states(into):
         Trainer.train_iteration = orig
 
 
+@contextlib.contextmanager
+def eval_returns(into):
+    """Within the block, every Trainer.eval_agent appends to `into` what
+    it returns: the mean greedy reward and the mean reward channels."""
+    from urban_tpu_torch.rl.trainer import Trainer
+    orig = Trainer.eval_agent
+
+    def eval_agent(self, iteration):
+        into.append(orig(self, iteration))
+        return into[-1]
+    Trainer.eval_agent = eval_agent
+    try:
+        yield
+    finally:
+        Trainer.eval_agent = orig
+
+
 def train_resume_export_hlg(dev):
     """The learning-parity recipe's trainer CLI (rl.trainer.main with
     tools/parity_run.RECIPE: hlg, 256 envs x 50 steps, 4 epochs of
@@ -824,59 +844,39 @@ def unmoved_parameters(after, before):
     return unchanged
 
 
-def huizhou_train_export(dev):
-    """The parity recipe's CLI (tools/parity_run.py) on Huizhou, the
-    scenario of JAX's round-5 record: --cfg huizhou at HZ_ENVS envs x the
-    50-step episode cap, 4 epochs of minibatch 256, HZ_EVAL_ENVS greedy
-    eval envs, seed 111, one iteration. The summary must name what ran;
-    the iteration must launch exactly rollout_len x layers forward kernels
-    in collect and in eval and minibatch steps x layers of each kernel in
-    the update; every parameter but the road head's must move. Then
-    tools/export_best_plan on best.pt: a finite host score, or the
-    record says that no greedy eval succeeded. Runs in a TAIL child."""
+def parity_train_export(dev, flags):
+    """tools/parity_run.py's recipe, the flags `flags` after the tool's
+    own, for one iteration on `dev`; then tools/export_best_plan on its
+    best.pt: a finite host score, or the record says that no greedy eval
+    succeeded. Returns the phase's record: what ran (the summary's
+    `effective`), the iteration's times, episodes, failures, losses and
+    eval with its reward channels, its launches in each part and those
+    counted over the run, the parameters it left as they were
+    (unmoved_parameters: the road head's alone may stay), the peak memory
+    and the export."""
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.rl import trainer as trainer_mod
     from urban_tpu_torch.tools import export_best_plan, parity_run
     with tempfile.TemporaryDirectory() as root:
-        entries = []
+        entries, evals = [], []
         torch.cuda.reset_peak_memory_stats(dev)
         segment_ops.reset_launches()
         t0 = time.time()
-        with entry_states(entries):
+        with entry_states(entries), eval_returns(evals):
             summary = parity_run.main([
                 '--iterations', '1', '--root_dir', root,
-                '--stats', os.path.join(root, 'stats.jsonl'),
-                '--cfg', 'huizhou', '--num_envs', str(HZ_ENVS),
-                '--eval_envs', str(HZ_EVAL_ENVS), '--device', str(dev)])
+                '--stats', os.path.join(root, 'stats.jsonl'), *flags,
+                '--device', str(dev)])
         torch.cuda.synchronize(dev)
         counted = dict(segment_ops.launches)
         seconds = time.time() - t0
-        eff = summary['effective']
-        if (eff['cfg'], eff['num_envs'], eff['eval_envs'], eff['seed'],
-                eff['encoder']) != ('huizhou', HZ_ENVS, HZ_EVAL_ENVS, 111,
-                                    'sgnn'):
-            raise AssertionError(f'the run was not the recipe: {eff}')
+        cfg_id = summary['effective']['cfg']
         with open(os.path.join(root, 'stats.jsonl')) as f:
             (st,) = [json.loads(line) for line in f
                      if not line.startswith('{"summary"')]
-        models = os.path.join(root, 'huizhou', '111', 'models')
+        models = os.path.join(root, cfg_id, '111', 'models')
         final = trainer_mod.read_checkpoint(os.path.join(models,
                                                          'final.pt'))
-        cfg = trainer_mod.Config('huizhou', 111, root_dir=root)
-        layers = cfg.state_encoder_specs['num_gcn_layers']
-        mb_layers = cfg.num_optim_epoch * (
-            HZ_ENVS * eff['rollout_len'] // cfg.mini_batch_size) * layers
-        steps = eff['rollout_len'] * layers
-        expect = {'collect': {'segment_mean': steps,
-                              'segment_mean_backward': 0},
-                  'update': {'segment_mean': mb_layers,
-                             'segment_mean_backward': mb_layers},
-                  'eval': {'segment_mean': steps,
-                           'segment_mean_backward': 0}}
-        total = {k: sum(p[k] for p in expect.values()) for k in counted}
-        if st['kernel_launches'] != expect or counted != total:
-            raise AssertionError(f'launches {st["kernel_launches"]} / '
-                                 f'{counted} != {expect}')
         unchanged = unmoved_parameters(final['params'],
                                        entries[0]['params'])
 
@@ -884,7 +884,7 @@ def huizhou_train_export(dev):
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             rc = export_best_plan.main([
-                '--cfg', 'huizhou', '--ckpt', os.path.join(models, 'best.pt'),
+                '--cfg', cfg_id, '--ckpt', os.path.join(models, 'best.pt'),
                 '--out', os.path.join(root, 'best.geojson')])
         lines = printed.getvalue().splitlines()
         if rc == 0:
@@ -900,13 +900,14 @@ def huizhou_train_export(dev):
         export.update(seconds=time.time() - t1,
                       jit_best_reward=summary['best_reward'],
                       best_iteration=summary['best_iteration'])
-    return {'effective': eff, 'seconds': seconds,
+    return {'effective': summary['effective'], 'seconds': seconds,
             't_sample_s': st['sample_time'], 't_update_s': st['update_time'],
             't_eval_s': st['eval_time'], 'episodes': st['episodes'],
             'failures': st['failures'],
             'failure_causes': st['failure_causes'],
             'mean_episode_reward': st['mean_episode_reward'],
-            'eval_reward': st['eval_reward'], 'losses': st['losses'],
+            'eval_reward': st['eval_reward'],
+            'eval_channels': evals[-1][1], 'losses': st['losses'],
             'minibatch_steps': len(st['minibatch_rows']),
             'iteration_kernel_launches': st['kernel_launches'],
             'kernel_launches': counted, 'unchanged_parameters': unchanged,
@@ -914,40 +915,75 @@ def huizhou_train_export(dev):
             'export': export}
 
 
+def huizhou_train_export(dev):
+    """The parity recipe's CLI (tools/parity_run.py) on Huizhou, the
+    scenario of JAX's round-5 record: --cfg huizhou at HZ_ENVS envs x the
+    50-step episode cap, 4 epochs of minibatch 256, HZ_EVAL_ENVS greedy
+    eval envs, seed 111, one iteration. The summary must name what ran;
+    the iteration must launch exactly rollout_len x layers forward kernels
+    in collect and in eval and minibatch steps x layers of each kernel in
+    the update; every parameter but the road head's must move. Then
+    tools/export_best_plan on best.pt (parity_train_export). Runs in a
+    TAIL child."""
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    out = parity_train_export(dev, ['--cfg', 'huizhou', '--num_envs',
+                                    str(HZ_ENVS), '--eval_envs',
+                                    str(HZ_EVAL_ENVS)])
+    eff, counted = out['effective'], out['kernel_launches']
+    if (eff['cfg'], eff['num_envs'], eff['eval_envs'], eff['seed'],
+            eff['encoder']) != ('huizhou', HZ_ENVS, HZ_EVAL_ENVS, 111,
+                                'sgnn'):
+        raise AssertionError(f'the run was not the recipe: {eff}')
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trainer_mod.Config('huizhou', 111, root_dir=root)
+    layers = cfg.state_encoder_specs['num_gcn_layers']
+    mb_layers = cfg.num_optim_epoch * (
+        HZ_ENVS * eff['rollout_len'] // cfg.mini_batch_size) * layers
+    steps = eff['rollout_len'] * layers
+    expect = {'collect': {'segment_mean': steps,
+                          'segment_mean_backward': 0},
+              'update': {'segment_mean': mb_layers,
+                         'segment_mean_backward': mb_layers},
+              'eval': {'segment_mean': steps,
+                       'segment_mean_backward': 0}}
+    total = {k: sum(p[k] for p in expect.values()) for k in counted}
+    if out['iteration_kernel_launches'] != expect or counted != total:
+        raise AssertionError(f'launches {out["iteration_kernel_launches"]}'
+                             f' / {counted} != {expect}')
+    return out
+
+
 def mlp_train_hlg(dev):
-    """The MLP encoder's train path: one HLG train_iteration with
-    encoder='mlp' (MLP_ENVS envs x TRAIN_LEN steps, 4 epochs of minibatch
-    256, through the collect and update programs), then a greedy eval of
-    MLP_EVAL_ENVS envs. Neither kernel may launch, every parameter but the
-    road head's must move, the losses and the eval must be finite. Runs
-    in a TAIL child."""
-    from urban_tpu_torch import bench
-    from urban_tpu_torch.ops import segment_ops
-    with tempfile.TemporaryDirectory() as run_dir:
-        trainer = bench.make_trainer(MLP_ENVS, TRAIN_LEN, dev, seed=0,
-                                     eval_envs=MLP_EVAL_ENVS,
-                                     root_dir=run_dir, encoder='mlp')
-        before = {k: p.detach().clone()
-                  for k, p in trainer.model.named_parameters()}
-        train = bench.measure_train_iteration(trainer)   # resets the counts
-        unchanged = unmoved_parameters(
-            dict(trainer.model.named_parameters()), before)
-        t0 = time.time()
-        eval_r, chans = trainer.eval_agent(0)
-        torch.cuda.synchronize(dev)
-        t_eval = time.time() - t0
-        launches = dict(segment_ops.launches)   # the iteration's and eval's
-    if launches != {'segment_mean': 0, 'segment_mean_backward': 0}:
-        raise AssertionError(f'the MLP encoder launched {launches}')
-    if train['episodes'] < 1:
+    """The path of the MLP ablation's long run: the parity recipe's CLI
+    (tools/parity_run.py) with --encoder mlp on HLG, at MLP_ENVS envs x
+    the recipe's 50-step window, 4 epochs of minibatch 256, MLP_EVAL_ENVS
+    greedy eval envs, seed 111, one iteration, then tools/export_best_plan
+    on best.pt (parity_train_export). The summary must name what ran;
+    neither kernel may launch in any part of the iteration, every
+    parameter but the road head's must move, the losses and the eval must
+    be finite. Runs in a TAIL child."""
+    out = parity_train_export(dev, ['--encoder', 'mlp', '--num_envs',
+                                    str(MLP_ENVS), '--eval_envs',
+                                    str(MLP_EVAL_ENVS)])
+    eff, counted = out['effective'], out['kernel_launches']
+    if (eff['cfg'], eff['num_envs'], eff['rollout_len'], eff['eval_envs'],
+            eff['seed'], eff['encoder'], eff['encoder_operands']) != (
+            'hlg', MLP_ENVS, 50, MLP_EVAL_ENVS, 111, 'mlp', 'f32'):
+        raise AssertionError(f'the run was not the recipe: {eff}')
+    none = {'segment_mean': 0, 'segment_mean_backward': 0}
+    if counted != none or out['iteration_kernel_launches'] != {
+            part: none for part in ('collect', 'update', 'eval')}:
+        raise AssertionError(f'the MLP encoder launched {counted} / '
+                             f'{out["iteration_kernel_launches"]}')
+    if out['episodes'] < 1:
         raise AssertionError('no episode ended in the MLP collect')
-    if not all(np.isfinite(v) for v in (*train['losses'].values(), eval_r,
-                                        *chans.values())):
+    if not all(np.isfinite(v) for v in (*out['losses'].values(),
+                                        out['eval_reward'],
+                                        *out['eval_channels'].values())):
         raise AssertionError(f'non-finite MLP losses or eval: '
-                             f'{train["losses"]} {eval_r} {chans}')
-    return dict(train, encoder='mlp', eval_envs=MLP_EVAL_ENVS,
-                t_eval_s=t_eval, eval_reward=eval_r, eval_channels=chans,
-                unchanged_parameters=unchanged, kernel_launches=launches)
+                             f'{out["losses"]} {out["eval_reward"]} '
+                             f'{out["eval_channels"]}')
+    return out
 
 
 def ga_graph_vs_eager(dev):

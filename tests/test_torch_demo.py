@@ -32,10 +32,18 @@ def jax_demo_score(cfg_id, path, road_weight):
     return env.score_plan(verbose=False)
 
 
-@pytest.mark.parametrize('cfg_id,road_weight', [('hlg', 1.0), ('hlg', 0.0),
-                                                ('grid', 1.0)])
-def test_score_matches_jax_demo(cfg_id, road_weight):
-    path = os.path.join(REPO, 'results', f'{cfg_id}_rl_tpu.geojson')
+@pytest.mark.parametrize('cfg_id,road_weight,plan', [
+    pytest.param('hlg', 1.0, 'hlg_rl_tpu', id='hlg-1.0'),
+    pytest.param('hlg', 0.0, 'hlg_rl_tpu', id='hlg-0.0'),
+    pytest.param('grid', 1.0, 'grid_rl_tpu', id='grid-1.0'),
+    # JAX's round-5 MLP ablation plan (the port's MLP gate's reference),
+    # and the plans the port trained on the card
+    pytest.param('hlg', 0.0, 'hlg_mlp_rl_tpu', id='hlg_mlp_rl_tpu'),
+    pytest.param('hlg', 0.0, 'hlg_rl_torch', id='hlg_rl_torch'),
+    pytest.param('huizhou', 0.0, 'huizhou_rl_torch', id='huizhou_rl_torch'),
+    pytest.param('hlg', 0.0, 'hlg_mlp_rl_torch', id='hlg_mlp_rl_torch')])
+def test_score_matches_jax_demo(cfg_id, road_weight, plan):
+    path = os.path.join(REPO, 'results', f'{plan}.geojson')
     want = jax_demo_score(cfg_id, path, road_weight)
     got = demo.score_plan(cfg_id, demo.load_plan_table(path), road_weight,
                           verbose=False)

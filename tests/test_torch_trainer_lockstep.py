@@ -162,14 +162,23 @@ def _adam_count(opt_state):
     (1, False), pytest.param(2, True, marks=pytest.mark.slow)])
 def test_trainer_loop_matches_tpu_trainer_across_iterations(
         iterations, do_eval, tmp_path, monkeypatch):
+    run_lockstep(iterations, do_eval, tmp_path, monkeypatch)
+
+
+def run_lockstep(iterations, do_eval, tmp_path, monkeypatch,
+                 encoder='sgnn'):
+    """Both trainers with the state encoder `encoder` ('sgnn' or 'mlp')
+    through `iterations` train iterations and the collect after them."""
     monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
     jt = TPUTrainer(_recipe(Config('hlg', SEED,
                                    root_dir=str(tmp_path / 'jax'))),
-                    num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS)
+                    num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS,
+                    encoder=encoder)
     tt = Trainer(_recipe(TorchConfig('hlg', SEED,
                                      root_dir=str(tmp_path / 'torch'))),
                  num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS,
-                 device='cpu')
+                 device='cpu', encoder=encoder)
+    assert (jt.encoder, tt.encoder) == (encoder, encoder)
     assert (tt.spec.num_features, tt.spec.NE) == (1344, 3000)
     load_flax_params(tt.model, jax.tree.map(np.asarray, jt.params))
 

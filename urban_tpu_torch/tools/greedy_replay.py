@@ -13,12 +13,16 @@ failure); ``host_survived`` means the slot tables fail an action the
 engine takes.
 
     python -m urban_tpu_torch.tools.greedy_replay --cfg hlg \\
-        --ckpt DIR/hlg/111/models/final.pt [--encoder_operands bf16] \\
-        [--bf16_linear_operands] [--global_seed 111] [--device cpu]
+        --ckpt DIR/hlg/111/models/final.pt [--encoder mlp] \\
+        [--encoder_operands bf16] [--bf16_linear_operands] \\
+        [--global_seed 111] [--device cpu]
 
 prints one JSON object: the episode's reward, done and failure, the
 failing step and its failure causes, the actions, and the replay's
-verdict. ``--bf16_linear_operands`` plays the episode with
+verdict. ``--encoder`` names the checkpoint's state encoder (``sgnn``,
+the trainer's default, or ``mlp``, the ablation's trunk): the model is
+built with it before the checkpoint's parameters are loaded.
+``--bf16_linear_operands`` plays the episode with
 ``tools/parity_run.py``'s bf16 ``nn.Linear`` operands, as a checkpoint of
 a run with that flag was trained and evaluated.
 """
@@ -42,22 +46,23 @@ from urban_tpu_torch.tools.replay_failures import replay_one
 
 def greedy_replay(cfg_name: str, ckpt: str, seed: int = 111,
                   encoder_operands: str = 'f32', device='cuda',
-                  bf16_linear_operands: bool = False) -> dict:
+                  bf16_linear_operands: bool = False,
+                  encoder: str = 'sgnn') -> dict:
     linear_forward = torch.nn.Linear.forward
     if bf16_linear_operands:
         torch.nn.Linear.forward = bf16_linear_forward
     try:
         return _greedy_replay(cfg_name, ckpt, seed, encoder_operands, device,
-                              bf16_linear_operands)
+                              bf16_linear_operands, encoder)
     finally:
         torch.nn.Linear.forward = linear_forward
 
 
 def _greedy_replay(cfg_name, ckpt, seed, encoder_operands, device,
-                   bf16_linear_operands) -> dict:
+                   bf16_linear_operands, encoder) -> dict:
     with tempfile.TemporaryDirectory() as root:
         trainer = Trainer(Config(cfg_name, seed, root_dir=root), num_envs=1,
-                          eval_envs=1, device=device,
+                          eval_envs=1, device=device, encoder=encoder,
                           encoder_operands=encoder_operands)
     trainer.model.load_state_dict(read_checkpoint(ckpt)['params'])
     program = trainer.program('eval', 1)
@@ -77,7 +82,8 @@ def _greedy_replay(cfg_name, ckpt, seed, encoder_operands, device,
         trainer.generator, trainer.rollout_len, program=program)
     live = [s for s in steps if not s[3]]           # before the freeze
     fail_at = next((k for k, s in enumerate(live) if s[1]), None)
-    out = {'checkpoint': ckpt, 'encoder_operands': encoder_operands,
+    out = {'checkpoint': ckpt, 'encoder': encoder,
+           'encoder_operands': encoder_operands,
            'bf16_linear_operands': bf16_linear_operands,
            'reward': float(total[0]), 'done': bool(done[0]),
            'failure': bool(failure[0]), 'steps': len(live),
@@ -98,13 +104,14 @@ def main(argv=None) -> dict:
     ap.add_argument('--cfg', default='hlg')
     ap.add_argument('--ckpt', required=True)
     ap.add_argument('--global_seed', type=int, default=111)
+    ap.add_argument('--encoder', choices=('sgnn', 'mlp'), default='sgnn')
     ap.add_argument('--encoder_operands', choices=('f32', 'bf16'),
                     default='f32')
     ap.add_argument('--bf16_linear_operands', action='store_true')
     ap.add_argument('--device', default='cuda')
     a = ap.parse_args(argv)
     out = greedy_replay(a.cfg, a.ckpt, a.global_seed, a.encoder_operands,
-                        a.device, a.bf16_linear_operands)
+                        a.device, a.bf16_linear_operands, a.encoder)
     print(json.dumps(out))
     return out
 
