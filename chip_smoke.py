@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the two CUDA kernels from the sources in the checkout (one nvcc per
-source, all at once) and checks each against its plain PyTorch version at
+source, all at once), prints the card's SM count and shared-memory limits
+that the launch plans read (and whether the plans are the H100 SXM's),
+and checks each kernel against its plain PyTorch version at
 the shapes of the main paths: the forward segment mean, which every path
 runs, and its backward, which the PPO update runs, each at the HLG
 rollout's, the HLG trainer's, a large graph's, the grid trainer's, the
@@ -72,7 +74,12 @@ every iteration, then the best plan's export, read back and host-scored;
 the same recipe on Huizhou through tools/parity_run.py, 16 envs x 50
 steps for one iteration, exact launches, then its export; the same
 tool with --encoder mlp on HLG, 32 envs x 50 steps for one iteration,
-no launch, then its export),
+no launch, then its export; the HLG trainer on the card, stepping
+eagerly, against the same trainer on the CPU across two iterations and
+a collect at 8 envs x 35 steps, from one initial draw on one served
+noise, for the SGNN and the MLP, tools/card_lockstep.py: the phase
+trainer_card_vs_cpu, with each parameter group's largest deviation an
+iteration and exact launches),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -84,7 +91,7 @@ after another or in the child processes: what the children save.
 One line per phase; the line before the last is one JSON object describing
 each kernel, the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA device or any check
-fails. About 9 minutes on an H100, as fast as the host is.
+fails. About 12 minutes on an H100, as fast as the host is.
 """
 import argparse
 import contextlib
@@ -173,6 +180,14 @@ HZ_ENVS, HZ_EVAL_ENVS = 16, 4
 # minibatches of 256 rows an epoch) and from 64 greedy eval envs to
 # MLP_EVAL_ENVS, one iteration
 MLP_ENVS, MLP_EVAL_ENVS = 32, 4
+# the trainer on the card against the same trainer on the CPU
+# (tools/card_lockstep.py), each arm (the SGNN, the MLP) in a TAIL child
+# whose CPU side runs in a spawned process meanwhile: LOCKSTEP_ENVS envs x
+# TRAIN_LEN steps (280 rows: the update's minibatch of 256 takes the
+# kernels' staged plan, the collect and the eval the split plan),
+# LOCKSTEP_EVAL_ENVS greedy eval envs, LOCKSTEP_ITERATIONS iterations and
+# a collect
+LOCKSTEP_ENVS, LOCKSTEP_EVAL_ENVS, LOCKSTEP_ITERATIONS = 8, 2, 2
 
 
 def phase(name, t0, **kv):
@@ -984,6 +999,70 @@ def mlp_train_hlg(dev):
                              f'{out["losses"]} {out["eval_reward"]} '
                              f'{out["eval_channels"]}')
     return out
+
+
+def trainer_card_vs_cpu(dev, encoder):
+    """tools/card_lockstep.py: the HLG trainer with the state encoder
+    `encoder` on the card (eager=True) against the same trainer on the
+    CPU (in a spawned process meanwhile), from the same initial draw, on
+    the same served noise, through LOCKSTEP_ITERATIONS iterations of
+    collect -> weights -> update -> eval and one more collect at
+    LOCKSTEP_ENVS envs x TRAIN_LEN steps: every check of the tool must
+    hold (actions, dones and failures equal, floats within rtol 1e-5 /
+    atol 1e-4, losses within 1e-4, parameters within 4e-5 an Adam step,
+    Adam's steps, the eval and the best plan's iteration). The card's
+    launches must be exact: TRAIN_LEN x layers forward in each collect
+    and eval, minibatch steps x layers of each kernel in each update; the
+    MLP none. Runs in a TAIL child, one an encoder."""
+    from urban_tpu_torch.host.utils.config import Config
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.tools import card_lockstep
+    segment_ops.reset_launches()
+    report = card_lockstep.run(
+        str(dev), 'cpu', concurrent=True, ref_threads=CHILD_THREADS,
+        encoder=encoder, num_envs=LOCKSTEP_ENVS, rollout_len=TRAIN_LEN,
+        eval_envs=LOCKSTEP_EVAL_ENVS, iterations=LOCKSTEP_ITERATIONS)
+    torch.cuda.synchronize(dev)
+    counted = dict(segment_ops.launches)
+    if not report['ok']:
+        raise AssertionError(f'trainer card vs cpu ({encoder}): '
+                             f'{report["failures"][:20]}')
+    with tempfile.TemporaryDirectory() as root:
+        cfg = Config('hlg', 111, root_dir=root)
+    layers = (cfg.state_encoder_specs['num_gcn_layers']
+              if encoder == 'sgnn' else 0)
+    rows = LOCKSTEP_ENVS * TRAIN_LEN
+    mb_layers = cfg.num_optim_epoch * max(
+        rows // cfg.mini_batch_size, 1) * layers
+    forward = {'segment_mean': TRAIN_LEN * layers,
+               'segment_mean_backward': 0}
+    expect = {'collect': forward, 'update': {
+        'segment_mean': mb_layers, 'segment_mean_backward': mb_layers},
+        'eval': forward}
+    total = {k: LOCKSTEP_ITERATIONS * sum(p[k] for p in expect.values())
+             + forward[k] for k in counted}
+    got = [it['launches'] for it in report['iterations']]
+    if (got != [expect] * LOCKSTEP_ITERATIONS or counted != total
+            or report['last_collect_launches'] != forward):
+        raise AssertionError(f'lockstep launches {got}, last collect '
+                             f'{report["last_collect_launches"]}, counted '
+                             f'{counted} != {expect}, {total}')
+    return {'encoder': encoder, 'sizes': report['sizes'],
+            'plans': report['plans'],
+            'per_iteration': [{k: it[k] for k in (
+                'adam_steps', 'parameter_bound', 'group_max_abs_diff',
+                'loss_abs_diff', 'eval_reward', 'episodes', 'failures',
+                'launches')} for it in report['iterations']],
+            'collects': report['collects'],
+            'sides_seconds': report['seconds'], 'kernel_launches': counted}
+
+
+def trainer_card_vs_cpu_sgnn(dev):
+    return trainer_card_vs_cpu(dev, 'sgnn')
+
+
+def trainer_card_vs_cpu_mlp(dev):
+    return trainer_card_vs_cpu(dev, 'mlp')
 
 
 def ga_graph_vs_eager(dev):
@@ -1973,10 +2052,14 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('ga_train', 'cuda'), ('divergence_side', 'cuda'),
         ('divergence_side', 'cpu'), ('train_graph_vs_eager', 'cuda'),
         ('ga_graph_vs_eager', 'cuda'), ('train_resume_export_hlg', 'cuda'),
-        ('huizhou_train_export', 'cuda'), ('mlp_train_hlg', 'cuda'))
+        ('huizhou_train_export', 'cuda'), ('mlp_train_hlg', 'cuda'),
+        ('trainer_card_vs_cpu_sgnn', 'cuda'),
+        ('trainer_card_vs_cpu_mlp', 'cuda'))
 # the TAIL phases that train: their launches go into the kernels' counts
 TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
-              'mlp_train_hlg')
+              'mlp_train_hlg', 'trainer_card_vs_cpu_sgnn',
+              'trainer_card_vs_cpu_mlp')
+LOCKSTEP_TAIL = TRAIN_TAIL[-2:]   # printed as one phase, trainer_card_vs_cpu
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -2219,8 +2302,15 @@ def tail(dev, children, concurrent=True):
     phase('ga_population_hlg', time.time() - s_fit - s_train, **fit, **train,
           parts_seconds={'fitness': s_fit, 'train_ga': s_train})
     for name in ('train_graph_vs_eager', 'ga_graph_vs_eager') + TRAIN_TAIL:
-        secs, rec = got[f'{name}:cuda']
-        phase(name, time.time() - secs, **rec)
+        if name not in LOCKSTEP_TAIL:
+            secs, rec = got[f'{name}:cuda']
+            phase(name, time.time() - secs, **rec)
+    arms = {got[f'{name}:cuda'][1]['encoder']: got[f'{name}:cuda']
+            for name in LOCKSTEP_TAIL}
+    phase('trainer_card_vs_cpu', time.time() - max(
+        secs for secs, _ in arms.values()),
+        **{encoder: dict(rec, seconds=secs)
+           for encoder, (secs, rec) in arms.items()})
     (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
         got['divergence_side:cpu']
     phase('divergence_card_vs_cpu', time.time() - s_card - s_cpu,
@@ -2295,6 +2385,18 @@ def smoke(t_start, children, keep_dir):
     root = os.path.dirname(os.path.abspath(__file__))
     phase('build', t0, nvcc_seconds=segment_ops.build_seconds,
           libraries={k: os.path.relpath(v, root) for k, v in libs.items()})
+
+    # ---- 2b. the launch plans on this card's limits ----------------------
+    t0 = time.time()
+    limits = segment_ops.device_limits(dev)
+    plans = kb.plans_under(segment_ops, limits)
+    phase('launch_plans', t0, device_limits=limits._asdict(),
+          reserved_bytes=limits.reserved_bytes,
+          h100_sxm_limits=limits == segment_ops.H100_SXM,
+          same_plans_as_h100_sxm=plans == kb.plans_under(
+              segment_ops, segment_ops.H100_SXM),
+          plans={k: {'forward': f, 'backward': b}
+                 for k, (f, b) in plans.items()})
 
     # ---- 3. the kernels against their plain versions --------------------
     # the forward and the backward at every shape of kb.SHAPES, on a random

@@ -41,7 +41,9 @@ def jax_demo_score(cfg_id, path, road_weight):
     pytest.param('hlg', 0.0, 'hlg_mlp_rl_tpu', id='hlg_mlp_rl_tpu'),
     pytest.param('hlg', 0.0, 'hlg_rl_torch', id='hlg_rl_torch'),
     pytest.param('huizhou', 0.0, 'huizhou_rl_torch', id='huizhou_rl_torch'),
-    pytest.param('hlg', 0.0, 'hlg_mlp_rl_torch', id='hlg_mlp_rl_torch')])
+    pytest.param('hlg', 0.0, 'hlg_mlp_rl_torch', id='hlg_mlp_rl_torch'),
+    pytest.param('hlg', 0.0, 'hlg_sgnn_r5_rl_torch',
+                 id='hlg_sgnn_r5_rl_torch')])
 def test_score_matches_jax_demo(cfg_id, road_weight, plan):
     path = os.path.join(REPO, 'results', f'{plan}.geojson')
     want = jax_demo_score(cfg_id, path, road_weight)

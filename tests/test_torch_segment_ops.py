@@ -12,6 +12,8 @@ JAX is imported inside the tests that use it, so that the card-only test
 collects on a machine without JAX:
     python -m pytest tests/test_torch_segment_ops.py -m gpu --noconftest
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -330,12 +332,56 @@ def test_graph_not_taken_raises_before_any_launch(monkeypatch):
     called = []
     monkeypatch.setattr(segment_ops, '_device',
                         lambda t: torch.device('cuda'))
+    monkeypatch.setattr(segment_ops, 'device_limits',
+                        lambda dev: segment_ops.H100_SXM)
     monkeypatch.setattr(segment_ops, '_launch',
                         lambda *a: called.append(a))
     before = dict(segment_ops.launches)
     with pytest.raises(ValueError):
         segment_ops.segment_mean_counts(h, edges, mask, n + 1)
     assert not called and segment_ops.launches == before
+
+
+def _props(sms, per_block, per_sm):
+    return types.SimpleNamespace(multi_processor_count=sms,
+                                 shared_memory_per_block_optin=per_block,
+                                 shared_memory_per_multiprocessor=per_sm)
+
+
+def test_plans_read_the_cards_limits(monkeypatch):
+    """The plans take the SM count and the shared-memory limits of the
+    tensor's card from torch.cuda.get_device_properties: the H100 SXM's
+    give the default plans; a card of 114 SMs (an H100 PCIe) moves the
+    staging threshold to B > 114 and each split's to B x split <= 114;
+    a card with 99 KB a block (sm_86) stages no trainer graph and takes
+    the backward's tile of 8."""
+    sxm = segment_ops.limits_of(_props(132, 232448, 233472))
+    assert sxm == segment_ops.H100_SXM and sxm.reserved_bytes == 1024
+    pcie = segment_ops.limits_of(_props(114, 232448, 233472))
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda dev: _props(114, 232448, 233472))
+    segment_ops.device_limits.cache_clear()
+    try:
+        assert segment_ops.device_limits(torch.device('cuda', 1)) == pcie
+    finally:
+        segment_ops.device_limits.cache_clear()
+
+    def plan(b, limits):
+        return segment_ops.forward_plan(b, 1344, 3000, 16, limits)
+    for limits, sms in ((sxm, 132), (pcie, 114)):
+        assert plan(sms, limits)[:3] == (1, 1024, False)
+        assert plan(sms + 1, limits)[:3] == (1, 1024, True)
+        for split in (8, 4, 2):
+            b = sms // split
+            assert plan(b, limits).split == split
+            assert plan(b + 1, limits).split == split // 2
+    assert plan(128, sxm).split == 1 and plan(128, pcie).staged
+    assert segment_ops.forward_plan(256, 1344, 3000, 16) == plan(256, sxm)
+    ampere = segment_ops.limits_of(_props(84, 101376, 102400))
+    assert plan(256, ampere)[:3] == (2, 512, False)
+    assert segment_ops.backward_plan(1344, 16) == \
+        segment_ops.backward_plan(1344, 16, pcie) == (16, 86016, 512)
+    assert segment_ops.backward_plan(1344, 16, ampere) == (8, 43008, 512)
 
 
 @pytest.mark.parametrize('B,E', [(0, 96), (3, 0), (0, 0)])

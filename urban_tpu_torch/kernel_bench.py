@@ -268,6 +268,19 @@ def forward_plan_of(segment_ops, b, n, e, d):
     return plan(b, n, e, d)._asdict() if plan else None
 
 
+def plans_under(segment_ops, limits) -> dict:
+    """forward_plan at every shape and batch that measure times and
+    backward_plan at every shape, on a card of `limits`
+    (segment_ops.DeviceLimits), as tuples keyed 'shape:B'."""
+    out = {}
+    for name, e, n, d in SHAPES + (DP_RANK_UPDATE,):
+        for b in BATCHES.get(name, (B,)):
+            out[f'{name}:{b}'] = (
+                tuple(segment_ops.forward_plan(b, n, e, d, limits)),
+                tuple(segment_ops.backward_plan(n, d, limits)))
+    return out
+
+
 def measure(segment_ops, rng, dev, reps=20):
     """Every kernel of segment_ops at every shape of SHAPES and at
     DP_RANK_UPDATE (at each of its BATCHES) on random bipartite graphs:

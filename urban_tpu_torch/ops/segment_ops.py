@@ -10,7 +10,8 @@ gradient.
   the forward kernel ``csrc/segment_mean.cu``, the port of both Pallas
   kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``),
   launched with the split of each batch element over CTAs, the block size
-  and the shared memory that ``forward_plan`` chooses.
+  and the shared memory that ``forward_plan`` chooses from the card's SM
+  count and shared-memory limits (``device_limits``).
 * ``SegmentMean`` is the autograd function: its forward is
   ``segment_mean_counts``, its backward ``segment_mean_backward``
   (``csrc/segment_mean_backward.cu``, no TPU counterpart), launched with
@@ -50,12 +51,38 @@ from torch.autograd.function import once_differentiable
 
 EPSILON = 1e-6
 SUPPORTED_DIMS = (8, 16, 32, 64)
-# Hopper (H100): shared memory one block may opt in to, an SM's shared
-# memory, and what the runtime reserves per resident block; SMs
-SHARED_BYTES_PER_BLOCK = 232448
-SHARED_BYTES_PER_SM = 233472
-SHARED_BYTES_RESERVED = 1024
-NUM_SMS = 132
+
+
+class DeviceLimits(NamedTuple):
+    """What the launch plans read of a card: its SMs, the shared memory one
+    block may opt in to, and an SM's shared memory; the difference of the
+    last two is what the runtime reserves per resident block."""
+    num_sms: int
+    shared_bytes_per_block: int
+    shared_bytes_per_sm: int
+
+    @property
+    def reserved_bytes(self) -> int:
+        return self.shared_bytes_per_sm - self.shared_bytes_per_block
+
+
+# the H100 SXM's limits: the plans' default where no card is named
+H100_SXM = DeviceLimits(132, 232448, 233472)
+NUM_SMS, SHARED_BYTES_PER_BLOCK, SHARED_BYTES_PER_SM = H100_SXM
+SHARED_BYTES_RESERVED = H100_SXM.reserved_bytes
+
+
+def limits_of(props) -> DeviceLimits:
+    """The limits in a card's torch.cuda.get_device_properties."""
+    return DeviceLimits(int(props.multi_processor_count),
+                        int(props.shared_memory_per_block_optin),
+                        int(props.shared_memory_per_multiprocessor))
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(device: torch.device) -> DeviceLimits:
+    """The limits of the CUDA device `device`, read once."""
+    return limits_of(torch.cuda.get_device_properties(device))
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, 'csrc')
@@ -231,37 +258,39 @@ def forward_shared_bytes(num_nodes: int, num_edges: int, width: int,
     return -(-size // 16) * 16
 
 
-def _fits(size: int) -> bool:
-    return size + FORWARD_STATIC_BYTES <= SHARED_BYTES_PER_BLOCK
+def _fits(size: int, limits: DeviceLimits) -> bool:
+    return size + FORWARD_STATIC_BYTES <= limits.shared_bytes_per_block
 
 
 @functools.lru_cache(maxsize=None)
-def forward_plan(batch: int, num_nodes: int, num_edges: int,
-                 width: int) -> ForwardPlan:
+def forward_plan(batch: int, num_nodes: int, num_edges: int, width: int,
+                 limits: DeviceLimits = H100_SXM) -> ForwardPlan:
     """The forward kernel's launch plan for B batch elements of N nodes, E
-    edges and D columns. A graph is taken where one CTA of 1024 threads
-    holds its CSR (at least every graph the kernel before this plan took)
-    and its keys 2 e + 1 fit 16 bits; anything else raises ValueError.
-    Where the batch fills the card (B > NUM_SMS) and the element's rows of
-    h fit beside its CSR, each element is staged in one CTA of 1024
-    threads, so that h is read once, in order, while the CSR is built.
-    Else the gather reads h from global memory: with 1024 threads and the
-    largest split of 8, 4, 2 or 1 CTAs an element that keeps the batch in
-    one wave of NUM_SMS CTAs, or, past NUM_SMS, with two CTAs of 512
-    threads an element, two an SM (faster at B 256 than one CTA an element
-    in one wave: kernel_bench's plan sweep times every plan)."""
+    edges and D columns on a card of `limits` (the wrapper passes its
+    tensor's device_limits). A graph is taken where one CTA of 1024
+    threads holds its CSR (at least every graph the kernel before this
+    plan took) and its keys 2 e + 1 fit 16 bits; anything else raises
+    ValueError. Where the batch fills the card (B > its SMs) and the
+    element's rows of h fit beside its CSR, each element is staged in one
+    CTA of 1024 threads, so that h is read once, in order, while the CSR
+    is built. Else the gather reads h from global memory: with 1024
+    threads and the largest split of 8, 4, 2 or 1 CTAs an element that
+    keeps the batch in one wave of a CTA an SM, or, past the SMs, with two
+    CTAs of 512 threads an element, two an SM (faster at B 256 than one
+    CTA an element in one wave: kernel_bench's plan sweep times every
+    plan)."""
     n, e, b = int(num_nodes), int(num_edges), int(batch)
     if width not in SUPPORTED_DIMS:
         raise ValueError(f'feature width {width} not in {SUPPORTED_DIMS}')
     if (n <= 0 or e < 0 or 2 * e + 1 > 0xFFFF or not _fits(
-            forward_shared_bytes(n, e, width, 1, 1024, False))):
+            forward_shared_bytes(n, e, width, 1, 1024, False), limits)):
         raise ValueError(f'segment_mean: a graph of {n} nodes and {e} edges '
                          f'does not fit in one CTA\'s shared memory')
     staged = forward_shared_bytes(n, e, width, 1, 1024, True)
-    if b > NUM_SMS and _fits(staged):
+    if b > limits.num_sms and _fits(staged, limits):
         return ForwardPlan(1, 1024, True, staged)
     for split in FORWARD_SPLITS[::-1]:   # each fits where split 1 does
-        if b * split <= NUM_SMS:
+        if b * split <= limits.num_sms:
             return ForwardPlan(split, 1024, False, forward_shared_bytes(
                 n, e, width, split, 1024, False))
     return ForwardPlan(2, 512, False,
@@ -278,9 +307,11 @@ class BackwardPlan(NamedTuple):
     threads: int
 
 
-def backward_plan(num_nodes: int, width: int) -> BackwardPlan:
+def backward_plan(num_nodes: int, width: int,
+                  limits: DeviceLimits = H100_SXM) -> BackwardPlan:
     """The backward kernel's column tile, shared memory and block size for
-    N nodes of D columns. Tiles are multiples of 4 columns (float4)
+    N nodes of D columns on a card of `limits` (the wrapper passes its
+    tensor's device_limits). Tiles are multiples of 4 columns (float4)
     dividing D. First choice: the widest tile of at least 8 columns (whole
     32-byte sectors of a dh row per block) with which two blocks of 512
     threads share an SM; else the widest tile one block of 1024 threads can
@@ -288,12 +319,12 @@ def backward_plan(num_nodes: int, width: int) -> BackwardPlan:
     also with 1024 threads (kernel_bench's tile sweep times the others)."""
     n = int(num_nodes)
     tiles = [t for t in (64, 32, 16, 8, 4) if t <= width and width % t == 0]
-    two_per_sm = SHARED_BYTES_PER_SM // 2 - SHARED_BYTES_RESERVED
+    two_per_sm = limits.shared_bytes_per_sm // 2 - limits.reserved_bytes
     for t in tiles:
         if t >= 8 and n * t * 4 <= two_per_sm:
             return BackwardPlan(t, n * t * 4, 512)
     for t in tiles:
-        if n * t * 4 <= SHARED_BYTES_PER_BLOCK:
+        if n * t * 4 <= limits.shared_bytes_per_block:
             return BackwardPlan(t, n * t * 4, 1024)
     return BackwardPlan(width, 0, 1024)
 
@@ -357,8 +388,9 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment mean (B, N, D) and per-node counts (B, N), without a
     gradient. CUDA tensors run csrc/segment_mean.cu with `plan` (default:
-    forward_plan's, which raises ValueError for a graph the kernel does not
-    take; kernel_bench times the others), CPU tensors the plain version."""
+    forward_plan's for the tensor's card, which raises ValueError for a
+    graph the kernel does not take; kernel_bench times the others), CPU
+    tensors the plain version."""
     _check(h_edges, edges, edge_mask, num_nodes)
     dev = _device(h_edges)
     N = int(num_nodes)
@@ -371,7 +403,7 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
     if h_edges.data_ptr() % 16 or edges.data_ptr() % 8:
         raise ValueError('segment_mean: h_edges must be 16-byte and edges '
                          '8-byte aligned')
-    plan = plan or forward_plan(B, N, E, D)
+    plan = plan or forward_plan(B, N, E, D, device_limits(dev))
     with torch.cuda.device(dev):
         out = torch.empty((B, N, D), dtype=torch.float32, device=dev)
         counts = torch.empty((B, N), dtype=torch.float32, device=dev)
@@ -386,9 +418,9 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
                           plan: BackwardPlan = None) -> torch.Tensor:
     """Gradient of the segment mean in h_edges: the backward of
     SegmentMean. CUDA tensors run csrc/segment_mean_backward.cu with
-    `plan` (default: backward_plan's; kernel_bench times the others), CPU
-    tensors the plain version. Both take the same inputs: grad_out must be
-    16-byte and edges 8-byte aligned."""
+    `plan` (default: backward_plan's for the tensor's card; kernel_bench
+    times the others), CPU tensors the plain version. Both take the same
+    inputs: grad_out must be 16-byte and edges 8-byte aligned."""
     _check_features('grad_out', grad_out, '(B, N, D)')
     B, N, D = grad_out.shape
     E = edge_mask.shape[-1]
@@ -412,7 +444,7 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
     dh = torch.empty((B, E, D), dtype=torch.float32, device=dev)
     if dh.data_ptr() % 16:
         raise ValueError('segment_mean_backward: dh is not 16-byte aligned')
-    plan = plan or backward_plan(N, D)
+    plan = plan or backward_plan(N, D, device_limits(dev))
     with torch.cuda.device(dev):
         _launch('segment_mean_backward', 'segment_mean_backward_f32',
                 grad_out.data_ptr(), counts.data_ptr(), edges.data_ptr(),

@@ -33,12 +33,14 @@ other entry points use it.
 ``--stats`` (JSON lines) gets one record per iteration as it completes
 (a chunk cut by a time limit keeps what it ran): its TrainStats
 (T_sample, T_update, T_eval, rewards, losses, failure causes, kernel
-launches), the value-vs-Monte-Carlo RMS and the best eval so far; then
+launches), the value-vs-Monte-Carlo RMS, the best eval so far and the
+iteration's own peak device memory (allocated and reserved, the peaks
+reset as each iteration starts; also a line of the trainer's log); then
 one summary record: the flags as given (``argv``, the recipe's first),
 the values the trainer ran with (``effective``: cfg, envs, rollout window,
 eval envs, seed, encoder and its operands, tau, lr, normalized
-advantages), the chunk's wall seconds, its iterations, the peak device
-memory, and the card's name and power limit (nvidia-smi).
+advantages), the chunk's wall seconds, its iterations, the chunk's peak
+device memory, and the card's name and power limit (nvidia-smi).
 
     python -m urban_tpu_torch.tools.parity_run --iterations 80 \\
         --root_dir DIR --stats chunk1.jsonl
@@ -108,6 +110,13 @@ def bf16_linear_forward(self, x):
     return Bf16OperandLinear.apply(x, self.weight, self.bias)
 
 
+def peak_memory(device) -> dict:
+    """The device's peak allocated and reserved bytes since the last
+    reset of the peaks."""
+    return {'allocated': torch.cuda.max_memory_allocated(device),
+            'reserved': torch.cuda.max_memory_reserved(device)}
+
+
 def effective_values(trainer) -> dict:
     """What the trainer ran with, read after the CLI's parsing."""
     cfg = trainer.cfg
@@ -150,14 +159,29 @@ def main(argv=None) -> dict:
     os.makedirs(os.path.dirname(os.path.abspath(a.stats)), exist_ok=True)
     with open(a.stats, 'a') as out:
         train_iteration = trainer_mod.Trainer.train_iteration
+        # the chunk's peaks before the iteration running now
+        chunk_peak = {'allocated': 0, 'reserved': 0}
 
         def recorded(self, iteration, do_eval=True):
+            cuda = self.device.type == 'cuda'
+            if cuda:
+                for k, v in peak_memory(self.device).items():
+                    chunk_peak[k] = max(chunk_peak[k], v)
+                torch.cuda.reset_peak_memory_stats(self.device)
             st = train_iteration(self, iteration, do_eval)
-            out.write(json.dumps(dict(dataclasses.asdict(st),
-                                      value_mc_rms=self.last_value_mc_rms,
-                                      best_reward=self.best_reward,
-                                      best_iteration=self.best_iteration))
-                      + '\n')
+            peak = peak_memory(self.device) if cuda else dict.fromkeys(
+                chunk_peak)
+            if cuda:
+                self.logger.info(
+                    f'{iteration}\tpeak_allocated_GB '
+                    f'{peak["allocated"] / 1e9:.3f}\tpeak_reserved_GB '
+                    f'{peak["reserved"] / 1e9:.3f}')
+            out.write(json.dumps(dict(
+                dataclasses.asdict(st), value_mc_rms=self.last_value_mc_rms,
+                best_reward=self.best_reward,
+                best_iteration=self.best_iteration,
+                peak_allocated_bytes=peak['allocated'],
+                peak_reserved_bytes=peak['reserved'])) + '\n')
             out.flush()
             return st
 
@@ -175,6 +199,9 @@ def main(argv=None) -> dict:
             torch.nn.Linear.forward = linear_forward
         wall = time.perf_counter() - t0
         cuda = trainer.device.type == 'cuda'
+        if cuda:
+            for k, v in peak_memory(trainer.device).items():
+                chunk_peak[k] = max(chunk_peak[k], v)
         summary = {
             'argv': argv, 'effective': effective_values(trainer),
             'init_params': a.init_params or None,
@@ -182,10 +209,10 @@ def main(argv=None) -> dict:
             'iterations': [h.iteration for h in trainer.history],
             'best_reward': trainer.best_reward,
             'best_iteration': trainer.best_iteration,
-            'peak_allocated_bytes': (torch.cuda.max_memory_allocated(
-                trainer.device) if cuda else None),
-            'peak_reserved_bytes': (torch.cuda.max_memory_reserved(
-                trainer.device) if cuda else None),
+            'peak_allocated_bytes': (chunk_peak['allocated'] if cuda
+                                     else None),
+            'peak_reserved_bytes': (chunk_peak['reserved'] if cuda
+                                    else None),
             'card': card_name_and_power() if cuda else None}
         out.write(json.dumps({'summary': summary}) + '\n')
     print(json.dumps(summary))
