@@ -74,12 +74,16 @@ every iteration, then the best plan's export, read back and host-scored;
 the same recipe on Huizhou through tools/parity_run.py, 16 envs x 50
 steps for one iteration, exact launches, then its export; the same
 tool with --encoder mlp on HLG, 32 envs x 50 steps for one iteration,
-no launch, then its export; the HLG trainer on the card, stepping
-eagerly, against the same trainer on the CPU across two iterations and
-a collect at 8 envs x 35 steps, from one initial draw on one served
-noise, for the SGNN and the MLP, tools/card_lockstep.py: the phase
-trainer_card_vs_cpu, with each parameter group's largest deviation an
-iteration and exact launches),
+no launch, then its export; the same tool on the planning-concept
+scenario hlg_concept, 32 envs x 50 steps for one iteration, exact
+launches, the concept reward timed, then its export with the plan's
+concept term: the phase concept_train_export; the HLG trainer on the
+card, stepping eagerly, against the same trainer on the CPU across two
+iterations and a collect at 8 envs x 35 steps, from one initial draw on
+one served noise, for the SGNN and the MLP, and the SGNN on hlg_concept
+(started after the HLG rollout, as the divergence replay's CPU side is),
+tools/card_lockstep.py: the phase trainer_card_vs_cpu, with each
+parameter group's largest deviation an iteration and exact launches),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -180,6 +184,12 @@ HZ_ENVS, HZ_EVAL_ENVS = 16, 4
 # minibatches of 256 rows an epoch) and from 64 greedy eval envs to
 # MLP_EVAL_ENVS, one iteration
 MLP_ENVS, MLP_EVAL_ENVS = 32, 4
+# the planning-concept scenario hlg_concept under the parity recipe's CLI
+# (its graph: 4000 edge slots, the forward's unstaged plan at B 256), cut
+# from 256 envs to CONCEPT_ENVS (the 50-step window kept: 6 minibatches
+# of 256 rows an epoch) and from 64 greedy eval envs to
+# CONCEPT_EVAL_ENVS, one iteration
+CONCEPT_ENVS, CONCEPT_EVAL_ENVS = 32, 4
 # the trainer on the card against the same trainer on the CPU
 # (tools/card_lockstep.py), each arm (the SGNN, the MLP) in a TAIL child
 # whose CPU side runs in a spawned process meanwhile: LOCKSTEP_ENVS envs x
@@ -907,6 +917,8 @@ def parity_train_export(dev, flags):
             if not np.isfinite(host):
                 raise AssertionError(f'export: host score {host}')
             export = {'rc': rc, 'printed': lines[0], 'host_reward': host}
+            if lines[-1].startswith('concept: '):
+                export['concept'] = float(lines[-1].split(': ')[1])
         elif lines == ['checkpoint has no best_plan_state']:
             export = {'rc': rc, 'printed': 'no greedy eval succeeded: no '
                       'plan to export', 'host_reward': None}
@@ -940,20 +952,30 @@ def huizhou_train_export(dev):
     the update; every parameter but the road head's must move. Then
     tools/export_best_plan on best.pt (parity_train_export). Runs in a
     TAIL child."""
-    from urban_tpu_torch.rl import trainer as trainer_mod
     out = parity_train_export(dev, ['--cfg', 'huizhou', '--num_envs',
                                     str(HZ_ENVS), '--eval_envs',
                                     str(HZ_EVAL_ENVS)])
-    eff, counted = out['effective'], out['kernel_launches']
+    eff = out['effective']
     if (eff['cfg'], eff['num_envs'], eff['eval_envs'], eff['seed'],
             eff['encoder']) != ('huizhou', HZ_ENVS, HZ_EVAL_ENVS, 111,
                                 'sgnn'):
         raise AssertionError(f'the run was not the recipe: {eff}')
+    check_iteration_launches(out)
+    return out
+
+
+def check_iteration_launches(out):
+    """A one-iteration parity_train_export record of the SGNN must have
+    launched exactly rollout_len x layers forward kernels in collect and
+    in eval and minibatch steps x layers of each kernel in the update,
+    and nothing else over the run."""
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    eff, counted = out['effective'], out['kernel_launches']
     with tempfile.TemporaryDirectory() as root:
-        cfg = trainer_mod.Config('huizhou', 111, root_dir=root)
+        cfg = trainer_mod.Config(eff['cfg'], 111, root_dir=root)
     layers = cfg.state_encoder_specs['num_gcn_layers']
     mb_layers = cfg.num_optim_epoch * (
-        HZ_ENVS * eff['rollout_len'] // cfg.mini_batch_size) * layers
+        eff['num_envs'] * eff['rollout_len'] // cfg.mini_batch_size) * layers
     steps = eff['rollout_len'] * layers
     expect = {'collect': {'segment_mean': steps,
                           'segment_mean_backward': 0},
@@ -965,6 +987,52 @@ def huizhou_train_export(dev):
     if out['iteration_kernel_launches'] != expect or counted != total:
         raise AssertionError(f'launches {out["iteration_kernel_launches"]}'
                              f' / {counted} != {expect}')
+
+
+def concept_train_export(dev):
+    """The path of the planning-concept scenario's long run: the parity
+    recipe's CLI (tools/parity_run.py) with --cfg hlg_concept at
+    CONCEPT_ENVS envs x the recipe's 50-step window, 4 epochs of minibatch
+    256, CONCEPT_EVAL_ENVS greedy eval envs, seed 111, one iteration (the
+    concept reward, timed by the tool, computed where an episode's land
+    use ends), then tools/export_best_plan on best.pt, which prints the
+    plan's concept term beside the host score (parity_train_export). The
+    summary must name what ran; the launches must be exact
+    (check_iteration_launches); every parameter but the road head's must
+    move; an episode must end in the collect, with the concept reward
+    computed; the losses must be finite. Runs in a TAIL child."""
+    from urban_tpu_torch.tools import parity_run
+    times = []
+    timer_call = parity_run.ConceptTimer.__call__
+
+    def kept(self, spec, state):
+        out = timer_call(self, spec, state)
+        times[:] = [dict(self.seconds), dict(self.calls)]
+        return out
+    parity_run.ConceptTimer.__call__ = kept
+    try:
+        out = parity_train_export(dev, [
+            '--cfg', 'hlg_concept', '--num_envs', str(CONCEPT_ENVS),
+            '--eval_envs', str(CONCEPT_EVAL_ENVS)])
+    finally:
+        parity_run.ConceptTimer.__call__ = timer_call
+    eff = out['effective']
+    if (eff['cfg'], eff['num_envs'], eff['rollout_len'], eff['eval_envs'],
+            eff['seed'], eff['encoder'], eff['encoder_operands']) != (
+            'hlg_concept', CONCEPT_ENVS, 50, CONCEPT_EVAL_ENVS, 111, 'sgnn',
+            'f32'):
+        raise AssertionError(f'the run was not the recipe: {eff}')
+    check_iteration_launches(out)
+    if out['episodes'] < 1 or not times or times[1]['collect'] < 1:
+        raise AssertionError(f'no concept reward in the collect: '
+                             f'{out["episodes"]} episodes, {times}')
+    if not all(np.isfinite(v) for v in out['losses'].values()):
+        raise AssertionError(f'non-finite losses {out["losses"]}')
+    export = out['export']
+    if export['host_reward'] is not None and not (
+            0.0 <= export.get('concept', -1.0) <= 1.0):
+        raise AssertionError(f'export: no concept term in {export}')
+    out.update(concept_reward_s=times[0], concept_reward_calls=times[1])
     return out
 
 
@@ -1001,9 +1069,10 @@ def mlp_train_hlg(dev):
     return out
 
 
-def trainer_card_vs_cpu(dev, encoder):
-    """tools/card_lockstep.py: the HLG trainer with the state encoder
-    `encoder` on the card (eager=True) against the same trainer on the
+def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg'):
+    """tools/card_lockstep.py: the trainer on scenario `cfg_id` with the
+    state encoder `encoder` on the card (eager=True) against the same
+    trainer on the
     CPU (in a spawned process meanwhile), from the same initial draw, on
     the same served noise, through LOCKSTEP_ITERATIONS iterations of
     collect -> weights -> update -> eval and one more collect at
@@ -1013,22 +1082,26 @@ def trainer_card_vs_cpu(dev, encoder):
     Adam's steps, the eval and the best plan's iteration). The card's
     launches must be exact: TRAIN_LEN x layers forward in each collect
     and eval, minibatch steps x layers of each kernel in each update; the
-    MLP none. Runs in a TAIL child, one an encoder."""
+    MLP none. Runs in a TAIL child, one an arm (the SGNN and the MLP on
+    HLG, the SGNN on hlg_concept: E 4000, the forward's split plan at B 8
+    and 2 and its unstaged plan at the update's B 256, the backward's
+    tile-16 plan, the concept term in the rewards compared)."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.tools import card_lockstep
     segment_ops.reset_launches()
     report = card_lockstep.run(
         str(dev), 'cpu', concurrent=True, ref_threads=CHILD_THREADS,
-        encoder=encoder, num_envs=LOCKSTEP_ENVS, rollout_len=TRAIN_LEN,
+        encoder=encoder, cfg=cfg_id, num_envs=LOCKSTEP_ENVS,
+        rollout_len=TRAIN_LEN,
         eval_envs=LOCKSTEP_EVAL_ENVS, iterations=LOCKSTEP_ITERATIONS)
     torch.cuda.synchronize(dev)
     counted = dict(segment_ops.launches)
     if not report['ok']:
-        raise AssertionError(f'trainer card vs cpu ({encoder}): '
+        raise AssertionError(f'trainer card vs cpu ({cfg_id}, {encoder}): '
                              f'{report["failures"][:20]}')
     with tempfile.TemporaryDirectory() as root:
-        cfg = Config('hlg', 111, root_dir=root)
+        cfg = Config(cfg_id, 111, root_dir=root)
     layers = (cfg.state_encoder_specs['num_gcn_layers']
               if encoder == 'sgnn' else 0)
     rows = LOCKSTEP_ENVS * TRAIN_LEN
@@ -1047,7 +1120,8 @@ def trainer_card_vs_cpu(dev, encoder):
         raise AssertionError(f'lockstep launches {got}, last collect '
                              f'{report["last_collect_launches"]}, counted '
                              f'{counted} != {expect}, {total}')
-    return {'encoder': encoder, 'sizes': report['sizes'],
+    return {'arm': encoder if cfg_id == 'hlg' else f'{cfg_id}_{encoder}',
+            'encoder': encoder, 'sizes': report['sizes'],
             'plans': report['plans'],
             'per_iteration': [{k: it[k] for k in (
                 'adam_steps', 'parameter_bound', 'group_max_abs_diff',
@@ -1063,6 +1137,10 @@ def trainer_card_vs_cpu_sgnn(dev):
 
 def trainer_card_vs_cpu_mlp(dev):
     return trainer_card_vs_cpu(dev, 'mlp')
+
+
+def trainer_card_vs_cpu_concept(dev):
+    return trainer_card_vs_cpu(dev, 'sgnn', 'hlg_concept')
 
 
 def ga_graph_vs_eager(dev):
@@ -2053,13 +2131,16 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('divergence_side', 'cpu'), ('train_graph_vs_eager', 'cuda'),
         ('ga_graph_vs_eager', 'cuda'), ('train_resume_export_hlg', 'cuda'),
         ('huizhou_train_export', 'cuda'), ('mlp_train_hlg', 'cuda'),
+        ('concept_train_export', 'cuda'),
         ('trainer_card_vs_cpu_sgnn', 'cuda'),
-        ('trainer_card_vs_cpu_mlp', 'cuda'))
+        ('trainer_card_vs_cpu_mlp', 'cuda'),
+        ('trainer_card_vs_cpu_concept', 'cuda'))
 # the TAIL phases that train: their launches go into the kernels' counts
 TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
-              'mlp_train_hlg', 'trainer_card_vs_cpu_sgnn',
-              'trainer_card_vs_cpu_mlp')
-LOCKSTEP_TAIL = TRAIN_TAIL[-2:]   # printed as one phase, trainer_card_vs_cpu
+              'mlp_train_hlg', 'concept_train_export',
+              'trainer_card_vs_cpu_sgnn', 'trainer_card_vs_cpu_mlp',
+              'trainer_card_vs_cpu_concept')
+LOCKSTEP_TAIL = TRAIN_TAIL[-3:]   # printed as one phase, trainer_card_vs_cpu
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -2305,12 +2386,12 @@ def tail(dev, children, concurrent=True):
         if name not in LOCKSTEP_TAIL:
             secs, rec = got[f'{name}:cuda']
             phase(name, time.time() - secs, **rec)
-    arms = {got[f'{name}:cuda'][1]['encoder']: got[f'{name}:cuda']
+    arms = {got[f'{name}:cuda'][1]['arm']: got[f'{name}:cuda']
             for name in LOCKSTEP_TAIL}
     phase('trainer_card_vs_cpu', time.time() - max(
         secs for secs, _ in arms.values()),
-        **{encoder: dict(rec, seconds=secs)
-           for encoder, (secs, rec) in arms.items()})
+        **{arm: dict(rec, seconds=secs)
+           for arm, (secs, rec) in arms.items()})
     (s_card, card), (s_cpu, cpu) = got['divergence_side:cuda'], \
         got['divergence_side:cpu']
     phase('divergence_card_vs_cpu', time.time() - s_card - s_cpu,
@@ -2549,8 +2630,13 @@ def smoke(t_start, children, keep_dir):
     torch.cuda.empty_cache()
     phase('rollout_graph_vs_eager', t0, **gve)
     # the divergence replay's CPU side (one core, no card) from here on,
-    # after the rollout whose env steps/s is the host's yardstick
+    # after the rollout whose env steps/s is the host's yardstick; so the
+    # hlg_concept arm of the card-vs-CPU trainer lockstep (three cores: its
+    # card side, a CPU side of two threads), whose ~300 s in the tail beside
+    # fifteen other children would lengthen the tail by ~120 s
     children['divergence_side:cpu'] = start_child('divergence_side', 'cpu')
+    children['trainer_card_vs_cpu_concept:cuda'] = start_child(
+        'trainer_card_vs_cpu_concept', 'cuda')
 
     # ---- 6. port GPU vs port CPU lockstep -------------------------------
     t0 = time.time()

@@ -2,9 +2,13 @@
 with both sides on the CPU: the SGNN trainer on HLG at the trainer's caps,
 2 envs x 35 steps, one iteration (collect -> weights -> update -> eval) and
 one more collect, each side on the served noise. Two CPU sides agree bit
-for bit; the comparison reports a 1e-3 nudge of one edge_fc weight on one
-side, in that layer's group alone; a served-noise queue that runs out, or
-is left over, raises."""
+for bit, on HLG and, through the tool's --cfg, on the planning-concept
+scenario hlg_concept (E = 4000 edges, the concept term in the reward);
+the comparison reports a 1e-3 nudge of one edge_fc weight on one side, in
+that layer's group alone; a served-noise queue that runs out, or is left
+over, raises."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +55,30 @@ def test_two_cpu_sides_agree_bit_for_bit(sides):
     # the window ended episodes, so the update had rows to learn from
     assert it['episodes'] >= 2 and ia['success_frac'] > 0
     assert np.isfinite(a['collects'][0]['gaps']).any()
+
+
+def test_two_cpu_sides_agree_bit_for_bit_on_concept(tmp_path):
+    """The tool's command line with --cfg hlg_concept, both sides on the
+    CPU at once: the report it writes says the sides agree bit for bit."""
+    out = tmp_path / 'report.json'
+    report = cl.main(['--cfg', 'hlg_concept', '--device', 'cpu',
+                      '--num_envs', '2', '--iterations', '1',
+                      '--concurrent', '--ref_threads', '1',
+                      '--out', str(out)])
+    assert report['ok'], report['failures']
+    assert json.loads(out.read_text())['ok']
+    assert report['sizes'] == dict(cfg='hlg_concept', num_envs=2,
+                                   rollout_len=35, eval_envs=2, nodes=1344,
+                                   edges=4000, iterations=1)
+    assert report['same_initial_parameters']
+    for c in report['collects']:
+        assert not c['differing_actions']
+        assert not any(v for k, v in c.items() if k.endswith('_abs_diff'))
+    (it,) = report['iterations']
+    assert it['adam_steps'] == 4 and it['episodes'] >= 2
+    assert not any(it['group_max_abs_diff'].values())
+    assert not any(it['loss_abs_diff'].values())
+    assert it['eval_reward'][0] == it['eval_reward'][1]
 
 
 def test_comparison_reports_a_nudged_edge_fc_weight(sides):

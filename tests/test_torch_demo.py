@@ -43,13 +43,40 @@ def jax_demo_score(cfg_id, path, road_weight):
     pytest.param('huizhou', 0.0, 'huizhou_rl_torch', id='huizhou_rl_torch'),
     pytest.param('hlg', 0.0, 'hlg_mlp_rl_torch', id='hlg_mlp_rl_torch'),
     pytest.param('hlg', 0.0, 'hlg_sgnn_r5_rl_torch',
-                 id='hlg_sgnn_r5_rl_torch')])
+                 id='hlg_sgnn_r5_rl_torch'),
+    # the planning-concept plans, JAX's and the port's, scored with their
+    # concept term (weight 3)
+    pytest.param('hlg_concept', 0.0, 'hlg_concept_rl_tpu',
+                 id='hlg_concept_rl_tpu'),
+    pytest.param('hlg_concept', 0.0, 'hlg_concept_rl_torch',
+                 id='hlg_concept_rl_torch')])
 def test_score_matches_jax_demo(cfg_id, road_weight, plan):
     path = os.path.join(REPO, 'results', f'{plan}.geojson')
     want = jax_demo_score(cfg_id, path, road_weight)
     got = demo.score_plan(cfg_id, demo.load_plan_table(path), road_weight,
                           verbose=False)
     assert got == want   # the reward and every channel of info, exactly
+
+
+@pytest.mark.parametrize('plan', ['hlg_concept_rl_tpu',
+                                  'hlg_concept_rl_torch'])
+def test_concept_term_matches_jax_host_scorer(plan):
+    """The concept term the port's export tool prints
+    (export_best_plan.concept_term) of a committed hlg_concept plan is JAX's
+    host scorer's, exactly, and with the score's channels it adds up to the
+    reward under the scenario's weights (life circle 4, greenness 1,
+    concept 3)."""
+    from urban_tpu_torch.tools.export_best_plan import concept_term
+    path = os.path.join(REPO, 'results', f'{plan}.geojson')
+    env = CityEnv(Config('hlg_concept', 0, tmp=True))
+    env.load_plan(load_geojson(path))
+    want = env._plc.get_concept_reward()[0]
+    table = demo.load_plan_table(path)
+    got = concept_term(TConfig('hlg_concept', 0, tmp=True), table)
+    assert got == want and 0 < got <= 1
+    reward, info = demo.score_plan('hlg_concept', table, 0.0, verbose=False)
+    assert reward == pytest.approx(4 * info['life_circle']
+                                   + info['greenness'] + 3 * got, abs=1e-12)
 
 
 def assert_same_table(a, b):

@@ -9,11 +9,14 @@ the plan state as a JAX trainer checkpoint (a pickle of
 ``plan_state_to_numpy``), and runs each package's tool on its own: the two
 GeoJSON files are equal as parsed JSON, types and coordinates exact, and
 the host scores they print (the reward and every channel) are the same
-text. On Huizhou, the scenario of JAX's round-5 record, the port's env
-takes the six actions alone (its lockstep with JAX's env is
-tests/test_torch_scenarios.py's, and JAX's compile of the Huizhou step
-would cost tier-1 ~45 s) and JAX's tool reads the same arrays as a JAX
-plan state."""
+text. On Huizhou, the scenario of JAX's round-5 record, and on the
+planning-concept scenario hlg_concept, the port's env takes the six
+actions alone (their lockstep with JAX's env is
+tests/test_torch_scenarios.py's and tests/test_torch_concept.py's, and
+JAX's compile of another scenario's step would cost tier-1 ~45 s) and
+JAX's tool reads the same arrays as a JAX plan state. On hlg_concept the
+port's tool also prints the concept term, which JAX's host scorer gives
+for JAX's own GeoJSON (its tool does not print it)."""
 import importlib.util
 import json
 import os
@@ -73,7 +76,8 @@ def port_steps(spec, state, rng, steps):
 def checkpoints(tmp_path_factory):
     """cfg -> (JAX checkpoint path, port checkpoint path) of one env's plan
     of the scenario after six land-use actions (HLG: in lockstep with
-    JAX's env; Huizhou: the port's env alone), made once a module."""
+    JAX's env; Huizhou, hlg_concept: the port's env alone), made once a
+    module."""
     made = {}
 
     def get(cfg):
@@ -102,7 +106,17 @@ def checkpoints(tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize('cfg', ['hlg', 'huizhou'])
+def jax_concept_term(cfg, path):
+    """JAX's host scorer's concept term of the GeoJSON plan at `path`."""
+    from urban_tpu.envs.city import CityEnv
+    from urban_tpu.io.geojson import load_geojson as j_load_geojson
+    from urban_tpu.utils.config import Config
+    env = CityEnv(Config(cfg, 111, tmp=True))
+    env.load_plan(j_load_geojson(path))
+    return env._plc.get_concept_reward()[0]
+
+
+@pytest.mark.parametrize('cfg', ['hlg', 'huizhou', 'hlg_concept'])
 def test_export_matches_jax_tool(cfg, checkpoints, tmp_path, monkeypatch,
                                  capsys):
     j_ckpt, t_ckpt = checkpoints(cfg)
@@ -125,7 +139,12 @@ def test_export_matches_jax_tool(cfg, checkpoints, tmp_path, monkeypatch,
 
     want = 'exported best plan (jit eval reward 3.2500, iteration 7) -> '
     assert j_printed[0] == want + j_out and t_printed[0] == want + t_out
-    # the host score: 'reward: ...' and the channels' pprint, as text
+    # the host score: 'reward: ...' and the channels' pprint, as text;
+    # then, where the scenario weights it, the concept term
+    if cfg == 'hlg_concept':
+        concept = t_printed.pop()
+        assert concept == f'concept: {jax_concept_term(cfg, j_out)}'
+        assert 0 <= float(concept.split(': ')[1]) <= 1
     assert t_printed[1:] == j_printed[1:]
     reward = float(t_printed[1].split(': ')[1])
     assert np.isfinite(reward) and reward > 0

@@ -4,7 +4,9 @@ HLG's round-5 SGNN-vs-MLP ablation (--encoder mlp). The summary names what
 the trainer ran (the flags after the recipe's override it), and the
 iteration's record carries the ended and failed episodes, the failure
 causes and the launches. The MLP rehearsal's final checkpoint then goes
-through tools/greedy_replay.py --encoder mlp."""
+through tools/greedy_replay.py --encoder mlp. The tool's timer of the
+concept reward (the planning-concept scenario's run) leaves the stage
+reward as it was and counts each call under the part running."""
 import json
 import math
 import os
@@ -72,6 +74,60 @@ def test_huizhou_rehearsal_names_what_ran(rehearsal):
     # 2 envs x 8 steps: one minibatch of 16 rows an epoch, 4 epochs
     assert it['minibatch_rows'] == [16] * 4
     assert os.path.exists(root / cfg / '111' / 'models' / 'final.pt')
+
+
+def test_concept_timer_keeps_the_stage_reward(monkeypatch):
+    """parity_run.ConceptTimer in torchenv.step.concept_reward's place,
+    called as the collect calls it (the land-use stage reward, vmapped
+    over a batch of hlg_concept states): the same reward, bit for bit, one
+    call counted under 'collect', none under 'eval'."""
+    from torch.func import vmap
+
+    from urban_tpu_torch.bench import load_config
+    from urban_tpu_torch.host.envs.plan_client import PlanClient
+    from urban_tpu_torch.torchenv import state as tstate
+    from urban_tpu_torch.torchenv import step
+    from urban_tpu_torch.torchenv.program import broadcast_state
+    cfg = load_config('hlg_concept')
+    plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
+    spec = tstate.build_env_spec(cfg, plc, max_steps=cfg.max_sequence_length)
+    states = broadcast_state(tstate.build_initial_state(spec, plc,
+                                                        device='cpu'), 2)
+    assert len(spec.concepts) == 3
+
+    def stage_reward():
+        return vmap(lambda s: step.land_use_stage_reward(spec, s))(states)
+    want = stage_reward()
+    timer = parity_run.ConceptTimer(step.concept_reward)
+    monkeypatch.setattr(step, 'concept_reward', timer)
+    timer.part = 'collect'
+    got = stage_reward()
+    assert torch.equal(got, want) and got.shape == (2,)
+    assert timer.calls == {'collect': 1, 'eval': 0}
+    assert timer.seconds['collect'] > 0 and timer.seconds['eval'] == 0
+    timer.reset()
+    assert timer.calls == {'collect': 0, 'eval': 0}
+
+
+def test_deadline_stops_the_chunk_and_saves_final(tmp_path):
+    """--deadline passed before the second iteration: the chunk runs
+    iteration 0 alone, saves final.pt of it and says it stopped; the next
+    chunk resumes from that final.pt at iteration 1."""
+    stats, root = tmp_path / 'stats.jsonl', tmp_path / 'run'
+    flags = ['--root_dir', str(root), '--stats', str(stats), '--cfg',
+             'hlg', '--num_envs', '2', '--eval_envs', '1', '--rollout_len',
+             '8', '--device', 'cpu']
+    first = parity_run.main(['--iterations', '3', '--deadline', '1e-3',
+                             *flags])
+    assert first['iterations'] == [0] and first['stopped_at_deadline']
+    final = str(root / 'hlg' / '111' / 'models' / 'final.pt')
+    assert read_checkpoint(final)['iteration'] == 0
+    second = parity_run.main(['--iterations', '2', '--resume', final,
+                              *flags])
+    assert second['iterations'] == [1]
+    assert not second['stopped_at_deadline']
+    lines = [json.loads(line) for line in stats.read_text().splitlines()]
+    assert [line.get('iteration') for line in lines] == [0, None, 1, None]
 
 
 @pytest.mark.parametrize('rehearsal', ['hlg_mlp'], indirect=True)

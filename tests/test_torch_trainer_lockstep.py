@@ -1,9 +1,12 @@
 """The port's PPO trainer loop against the JAX trainer's, across
 iterations: urban_tpu.rl.train_tpu.TPUTrainer and
-urban_tpu_torch.rl.trainer.Trainer side by side on HLG at the trainer's
-caps (N = 1344 nodes, E = 3000 edges), under the learning-parity recipe's
-flags (--normalize_advantages --tau 0.95), from the same parameters (the
-JAX trainer's initial draw, converted).
+urban_tpu_torch.rl.trainer.Trainer side by side at the trainer's caps,
+on HLG (N = 1344 nodes, E = 3000 edges) and on the planning-concept
+scenario hlg_concept (N = 1344, E = 4000; its concept term, weighted 3,
+enters the reward where an episode's land use ends, so the update learns
+from it), under the learning-parity recipe's flags (--normalize_advantages
+--tau 0.95), from the same parameters (the JAX trainer's initial draw,
+converted).
 
 Both take the same sampling noise: the JAX trainer's own key chain
 (TPUTrainer.collect splits its key, jaxenv/rollout.py splits the step keys
@@ -53,6 +56,7 @@ torch.set_num_threads(1)
 
 SEED = 111
 ENVS, STEPS, EVAL_ENVS = 2, 35, 2
+CAPS = {'hlg': (1344, 3000), 'hlg_concept': (1344, 4000)}   # (N, E)
 STEP_ATOL = 4e-5          # a parameter's bound, an Adam step
 RTOL, ATOL = 1e-5, 1e-4   # the env lockstep's float rule
 
@@ -158,28 +162,36 @@ def _adam_count(opt_state):
     return int(adam[0].count)
 
 
-@pytest.mark.parametrize('iterations,do_eval', [
-    (1, False), pytest.param(2, True, marks=pytest.mark.slow)])
+# the HLG cases keep the ids they had before the scenario was a parameter
+@pytest.mark.parametrize('cfg,iterations,do_eval', [
+    pytest.param('hlg', 1, False, id='1-False'),
+    pytest.param('hlg', 2, True, marks=pytest.mark.slow, id='2-True'),
+    pytest.param('hlg_concept', 1, False, id='hlg_concept-1-False'),
+    pytest.param('hlg_concept', 2, True, marks=pytest.mark.slow,
+                 id='hlg_concept-2-True')])
 def test_trainer_loop_matches_tpu_trainer_across_iterations(
-        iterations, do_eval, tmp_path, monkeypatch):
-    run_lockstep(iterations, do_eval, tmp_path, monkeypatch)
+        cfg, iterations, do_eval, tmp_path, monkeypatch):
+    run_lockstep(iterations, do_eval, tmp_path, monkeypatch, cfg=cfg)
 
 
 def run_lockstep(iterations, do_eval, tmp_path, monkeypatch,
-                 encoder='sgnn'):
-    """Both trainers with the state encoder `encoder` ('sgnn' or 'mlp')
-    through `iterations` train iterations and the collect after them."""
+                 encoder='sgnn', cfg='hlg'):
+    """Both trainers on scenario `cfg` with the state encoder `encoder`
+    ('sgnn' or 'mlp') through `iterations` train iterations and the
+    collect after them."""
     monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
-    jt = TPUTrainer(_recipe(Config('hlg', SEED,
+    jt = TPUTrainer(_recipe(Config(cfg, SEED,
                                    root_dir=str(tmp_path / 'jax'))),
                     num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS,
                     encoder=encoder)
-    tt = Trainer(_recipe(TorchConfig('hlg', SEED,
+    tt = Trainer(_recipe(TorchConfig(cfg, SEED,
                                      root_dir=str(tmp_path / 'torch'))),
                  num_envs=ENVS, rollout_len=STEPS, eval_envs=EVAL_ENVS,
                  device='cpu', encoder=encoder)
     assert (jt.encoder, tt.encoder) == (encoder, encoder)
-    assert (tt.spec.num_features, tt.spec.NE) == (1344, 3000)
+    assert (tt.spec.num_features, tt.spec.NE) == CAPS[cfg]
+    if cfg == 'hlg_concept':
+        assert len(tt.spec.concepts) == 3 and tt.spec.concept_weight == 3.0
     load_flax_params(tt.model, jax.tree.map(np.asarray, jt.params))
 
     noise = ServedNoise()

@@ -52,10 +52,11 @@ SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
 # data-parallel rank of two holds about half of each B-row minibatch of
 # the HLG trainer (its graph, not in SHAPES: chip_smoke.py checks it); the
 # Huizhou trainer updates on minibatches of B rows and collects with its
-# config's 192 envs, as the grid trainer collects
+# config's 192 envs, as the grid trainer collects; the concept recipe
+# collects and updates at B and evaluates 64 envs
 BATCHES = {'rollout': (B, B // 4), 'trainer': (B, 64), 'host_obs': (B, 1),
            'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192, 64),
-           'grid_trainer': (B, 192)}
+           'grid_trainer': (B, 192), 'concept': (B, 64)}
 DP_RANK_UPDATE = ('dp_rank_update', 3000, 1344, 16)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order

@@ -1,8 +1,11 @@
 """The port's PPO trainer on the card against the same trainer on the CPU,
 across iterations.
 
-Two ``rl.trainer.Trainer``s on HLG at the trainer's caps (N = 1344 nodes,
-E = 3000 edges) under the learning-parity recipe's flags (normalized
+Two ``rl.trainer.Trainer``s on a scenario (``--cfg``: HLG at the
+trainer's caps, N = 1344 nodes, E = 3000 edges; or the planning-concept
+scenario hlg_concept, N = 1344, E = 4000, whose concept term enters the
+reward at the land-use stage's end) under the learning-parity recipe's
+flags (normalized
 advantages, tau 0.95; the config's lr 4e-4, 4 epochs, minibatch 256): one
 on the device under test, stepping eagerly (``eager=True``: served noise
 cannot enter a captured graph, and the graphs are held to the eager loop
@@ -46,6 +49,8 @@ and the launch plans of the batches that ran.
     python -m urban_tpu_torch.tools.card_lockstep --encoder mlp
     python -m urban_tpu_torch.tools.card_lockstep --num_envs 136 \\
         --iterations 1 --concurrent --out lockstep_136.json
+    python -m urban_tpu_torch.tools.card_lockstep --cfg hlg_concept \\
+        --concurrent
     python -m urban_tpu_torch.tools.card_lockstep --device cpu \\
         --num_envs 2 --iterations 1
 
@@ -86,9 +91,10 @@ ITERATION_FLOATS = ('mean_episode_reward', 'success_frac', 'eval_reward',
                     'best_reward')
 
 
-def recipe_config(root_dir: str) -> Config:
-    """HLG's config at SEED under the learning-parity recipe's flags."""
-    cfg = Config('hlg', SEED, tmp=False, root_dir=root_dir)
+def recipe_config(root_dir: str, cfg_id: str = 'hlg') -> Config:
+    """The scenario's config at SEED under the learning-parity recipe's
+    flags."""
+    cfg = Config(cfg_id, SEED, tmp=False, root_dir=root_dir)
     cfg.agent_specs = dict(cfg.agent_specs, normalize_advantages=True)
     cfg.tau = 0.95
     return cfg
@@ -231,11 +237,13 @@ def launch_plans(trainer: Trainer) -> dict:
                                                   limits)._asdict()}
 
 
-def run_side(device: str, encoder: str = 'sgnn', num_envs: int = NUM_ENVS,
+def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
+             num_envs: int = NUM_ENVS,
              rollout_len: int = ROLLOUT_LEN, eval_envs: int = EVAL_ENVS,
              iterations: int = ITERATIONS,
              threads: Optional[int] = None) -> dict:
-    """One side of the lockstep: an eager trainer on `device` through
+    """One side of the lockstep: an eager trainer on scenario `cfg` on
+    `device` through
     `iterations` train iterations and one more collect on the served
     noise. Returns its record (numpy and plain values only): the initial
     parameters, each collect's trajectory and decision gaps, and each
@@ -247,7 +255,7 @@ def run_side(device: str, encoder: str = 'sgnn', num_envs: int = NUM_ENVS,
         from urban_tpu_torch.bench import set_precision_flags
         set_precision_flags()
     with tempfile.TemporaryDirectory() as root_dir:
-        trainer = Trainer(recipe_config(root_dir), num_envs=num_envs,
+        trainer = Trainer(recipe_config(root_dir, cfg), num_envs=num_envs,
                           rollout_len=rollout_len, eval_envs=eval_envs,
                           device=dev, encoder=encoder, eager=True)
         return _run(trainer, iterations)
@@ -259,7 +267,8 @@ def _run(trainer: Trainer, iterations: int) -> dict:
     rng = np.random.default_rng(NOISE_SEED)
     noise, recorder = ServedNoise(), GapRecorder(policy.gumbel_scores)
     record = {'device': str(trainer.device), 'encoder': trainer.encoder,
-              'sizes': {'num_envs': B, 'rollout_len': T,
+              'sizes': {'cfg': trainer.cfg.id, 'num_envs': B,
+                        'rollout_len': T,
                         'eval_envs': trainer.eval_envs, 'nodes': N,
                         'edges': E, 'iterations': iterations},
               'init_params': _numpy_params(trainer.model),
@@ -433,6 +442,8 @@ def run(device: str = 'cuda', ref_device: str = 'cpu', **kwargs) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--encoder', choices=('sgnn', 'mlp'), default='sgnn')
+    ap.add_argument('--cfg', default='hlg',
+                    help='The scenario (hlg, hlg_concept, ...).')
     ap.add_argument('--num_envs', type=int, default=NUM_ENVS)
     ap.add_argument('--iterations', type=int, default=ITERATIONS)
     ap.add_argument('--device', default='cuda',
@@ -447,7 +458,7 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     report = run(a.device, concurrent=a.concurrent,
                  ref_threads=a.ref_threads or None, encoder=a.encoder,
-                 num_envs=a.num_envs, iterations=a.iterations)
+                 cfg=a.cfg, num_envs=a.num_envs, iterations=a.iterations)
     report['wall_seconds'] = time.perf_counter() - t0
     for i, it in enumerate(report['iterations']):
         print(json.dumps({'iteration': i, **it}), flush=True)

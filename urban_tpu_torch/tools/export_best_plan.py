@@ -11,6 +11,9 @@ in the published results/ format, and re-scores the filled plan in the
 host ``CityEnv`` with the scenario's own reward weights (the published
 scorer). The score of the filled plan is the number the JAX package's
 tool gives; ``demo`` on the same checkpoint scores the plan unfilled.
+Where the scenario weights a planning-concept term (hlg_concept,
+dhm_concept), a last line gives that term unweighted, ``concept: x``,
+which the score's channels do not list.
 
     python -m urban_tpu_torch.tools.export_best_plan --cfg hlg \\
         --ckpt DIR/hlg/111/models/best.pt --out results/hlg_rl_torch.geojson
@@ -24,10 +27,20 @@ import tempfile
 
 from urban_tpu_torch.host import city_config
 from urban_tpu_torch.host.envs.city import CityEnv
+from urban_tpu_torch.host.envs.plan_client import PlanClient
 from urban_tpu_torch.host.io.geojson import save_geojson
 from urban_tpu_torch.host.utils.config import Config
 from urban_tpu_torch.rl.trainer import read_checkpoint
 from urban_tpu_torch.torchenv.state import state_to_table
+
+
+def concept_term(cfg: Config, table) -> float:
+    """The plan's planning-concept term, unweighted, as the host engine
+    computes it inside the land-use reward (score_plan's info does not
+    list it)."""
+    plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
+    plc.load_plan(table)
+    return plc.get_concept_reward()[0]
 
 
 def main(argv=None) -> int:
@@ -56,6 +69,8 @@ def main(argv=None) -> int:
     env = CityEnv(cfg)
     env.load_plan(table)
     env.score_plan(verbose=True)
+    if cfg.reward_specs.get('concept_weight', 0.0) > 0:
+        print(f'concept: {concept_term(cfg, table)}')
     return 0
 
 

@@ -35,12 +35,26 @@ other entry points use it.
 (T_sample, T_update, T_eval, rewards, losses, failure causes, kernel
 launches), the value-vs-Monte-Carlo RMS, the best eval so far and the
 iteration's own peak device memory (allocated and reserved, the peaks
-reset as each iteration starts; also a line of the trainer's log); then
+reset as each iteration starts; also a line of the trainer's log) and,
+on a scenario with planning concepts, the seconds the concept reward
+took in the collect and in the eval (``concept_reward_s``: each call of
+``torchenv.step.concept_reward``, which runs eagerly where an episode's
+land use ends, timed between device synchronizations; on that line of
+the log too); then
 one summary record: the flags as given (``argv``, the recipe's first),
 the values the trainer ran with (``effective``: cfg, envs, rollout window,
 eval envs, seed, encoder and its operands, tau, lr, normalized
 advantages), the chunk's wall seconds, its iterations, the chunk's peak
 device memory, and the card's name and power limit (nvidia-smi).
+
+``--deadline SECONDS`` ends a chunk early where the next iteration would
+not end in time: before each iteration but its first, if the seconds
+since the trainer started plus 1.25 times the last iteration's would pass
+the deadline, the chunk stops there and saves ``final.pt`` of the last
+iteration it ran, as a chunk whose ``--iterations`` were that one's next
+would (the summary's ``stopped_at_deadline``). A call with a time limit
+then loses no iteration to it, and the next chunk resumes from
+``final.pt``.
 
     python -m urban_tpu_torch.tools.parity_run --iterations 80 \\
         --root_dir DIR --stats chunk1.jsonl
@@ -67,6 +81,7 @@ import torch.nn.functional as F
 from urban_tpu_torch.models.convert import load_flax_npz
 from urban_tpu_torch.models.encoder import round_operand
 from urban_tpu_torch.rl import trainer as trainer_mod
+from urban_tpu_torch.torchenv import step as step_mod
 
 RECIPE = ['--cfg', 'hlg', '--num_envs', '256', '--eval_envs', '64',
           '--global_seed', '111', '--normalize_advantages', '--tau', '0.95']
@@ -117,6 +132,38 @@ def peak_memory(device) -> dict:
             'reserved': torch.cuda.max_memory_reserved(device)}
 
 
+class ChunkDeadline(Exception):
+    """The next iteration would not end before the chunk's deadline."""
+
+
+class ConceptTimer:
+    """Stands in for step.concept_reward: the same reward, and the seconds
+    of each call, from a device synchronization before it to one after
+    it, added up under the part of the iteration running ('collect' while
+    Trainer.collect runs, else 'eval': the update computes no reward)."""
+
+    def __init__(self, concept_reward):
+        self.concept_reward = concept_reward
+        self.part = 'eval'
+        self.reset()
+
+    def reset(self):
+        self.seconds = {'collect': 0.0, 'eval': 0.0}
+        self.calls = {'collect': 0, 'eval': 0}
+
+    def __call__(self, spec, state):
+        device = state.poly_alive.device
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = self.concept_reward(spec, state)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        self.seconds[self.part] += time.perf_counter() - t0
+        self.calls[self.part] += 1
+        return out
+
+
 def effective_values(trainer) -> dict:
     """What the trainer ran with, read after the CLI's parsing."""
     cfg = trainer.cfg
@@ -143,6 +190,10 @@ def main(argv=None) -> dict:
     ap.add_argument('--bf16_linear_operands', action='store_true',
                     help='Round every nn.Linear\'s operands to bf16 (an '
                     'approximation of a TPU\'s default f32 matmuls).')
+    ap.add_argument('--deadline', type=float, default=0.0,
+                    help='Seconds from the trainer\'s start: stop the chunk '
+                    'before an iteration that would end past them (0: '
+                    'none).')
     a, extra = ap.parse_known_args(argv)
     argv = RECIPE + ['--iterations', str(a.iterations),
                      '--root_dir', a.root_dir] + extra
@@ -151,6 +202,16 @@ def main(argv=None) -> dict:
 
     init_model = trainer_mod.Trainer._init_model
     linear_forward = torch.nn.Linear.forward
+    collect = trainer_mod.Trainer.collect
+    concept_reward = step_mod.concept_reward
+    concept = ConceptTimer(concept_reward)
+
+    def timed_collect(self):
+        concept.part = 'collect'
+        try:
+            return collect(self)
+        finally:
+            concept.part = 'eval'
 
     def init_from_file(self):
         init_model(self)
@@ -161,40 +222,67 @@ def main(argv=None) -> dict:
         train_iteration = trainer_mod.Trainer.train_iteration
         # the chunk's peaks before the iteration running now
         chunk_peak = {'allocated': 0, 'reserved': 0}
+        # the trainer, and the seconds its last iteration took
+        running = {'trainer': None, 'last_s': 0.0}
 
         def recorded(self, iteration, do_eval=True):
+            running['trainer'] = self
+            t_start = time.perf_counter()
+            if a.deadline and self.history and (
+                    t_start - t0 + 1.25 * running['last_s'] > a.deadline):
+                raise ChunkDeadline(iteration)
             cuda = self.device.type == 'cuda'
             if cuda:
                 for k, v in peak_memory(self.device).items():
                     chunk_peak[k] = max(chunk_peak[k], v)
                 torch.cuda.reset_peak_memory_stats(self.device)
+            concept.reset()
             st = train_iteration(self, iteration, do_eval)
             peak = peak_memory(self.device) if cuda else dict.fromkeys(
                 chunk_peak)
+            has_concepts = bool(self.spec.concepts)
+            line = [str(iteration)]
             if cuda:
-                self.logger.info(
-                    f'{iteration}\tpeak_allocated_GB '
-                    f'{peak["allocated"] / 1e9:.3f}\tpeak_reserved_GB '
-                    f'{peak["reserved"] / 1e9:.3f}')
+                line += [f'peak_allocated_GB {peak["allocated"] / 1e9:.3f}',
+                         f'peak_reserved_GB {peak["reserved"] / 1e9:.3f}']
+            if has_concepts:
+                line.append(f'concept_reward_s collect '
+                            f'{concept.seconds["collect"]:.3f} eval '
+                            f'{concept.seconds["eval"]:.3f}')
+            if len(line) > 1:
+                self.logger.info('\t'.join(line))
             out.write(json.dumps(dict(
                 dataclasses.asdict(st), value_mc_rms=self.last_value_mc_rms,
                 best_reward=self.best_reward,
                 best_iteration=self.best_iteration,
                 peak_allocated_bytes=peak['allocated'],
-                peak_reserved_bytes=peak['reserved'])) + '\n')
+                peak_reserved_bytes=peak['reserved'],
+                **({'concept_reward_s': dict(concept.seconds),
+                    'concept_reward_calls': dict(concept.calls)}
+                   if has_concepts else {}))) + '\n')
             out.flush()
+            running['last_s'] = time.perf_counter() - t_start
             return st
 
         trainer_mod.Trainer.train_iteration = recorded
+        trainer_mod.Trainer.collect = timed_collect
+        step_mod.concept_reward = concept
         if a.init_params:
             trainer_mod.Trainer._init_model = init_from_file
         if a.bf16_linear_operands:
             torch.nn.Linear.forward = bf16_linear_forward
         t0 = time.perf_counter()
+        stopped = False
         try:
             trainer = trainer_mod.main(argv)
+        except ChunkDeadline:
+            trainer, stopped = running['trainer'], True
+            trainer.save_checkpoint(trainer.history[-1].iteration,
+                                    tag='final')
         finally:
             trainer_mod.Trainer.train_iteration = train_iteration
+            trainer_mod.Trainer.collect = collect
+            step_mod.concept_reward = concept_reward
             trainer_mod.Trainer._init_model = init_model
             torch.nn.Linear.forward = linear_forward
         wall = time.perf_counter() - t0
@@ -209,6 +297,7 @@ def main(argv=None) -> dict:
             'iterations': [h.iteration for h in trainer.history],
             'best_reward': trainer.best_reward,
             'best_iteration': trainer.best_iteration,
+            'stopped_at_deadline': stopped,
             'peak_allocated_bytes': (chunk_peak['allocated'] if cuda
                                      else None),
             'peak_reserved_bytes': (chunk_peak['reserved'] if cuda
