@@ -12,7 +12,14 @@ rollout's, the HLG trainer's, a large graph's, the grid trainer's, the
 concept scenarios' and the Huizhou trainer's size, timed beside one
 PyTorch library call and its memory bound
 (urban_tpu_torch/kernel_bench.py). The backward must give the
-plain version's bits, on the card and on the CPU.
+plain version's bits, on the card and on the CPU. Then both kernels at
+the range shapes (kernel_bench.RANGE_SHAPES: gcn_node_dim 24, 128 and 6 at
+the HLG trainer's graph, HLG's nodes with 40,000 edge slots, a graph of
+40,000 nodes and 100,000 edge slots at widths 16 and 24; the forward's
+general plan and its runtime-width paths) with the same checks, the
+general plan forced at the HLG and Huizhou trainer graphs, and the
+runtime-width instantiation against the templated one, each with the
+chosen plan's bits.
 Runs the SGNN policy on the card against the same model on the CPU, and
 one PPO loss backward on the card against the CPU. Drives the batched HLG
 rollout (256 envs x 30 steps) through the captured CUDA graph of its step
@@ -83,7 +90,12 @@ iterations and a collect at 8 envs x 35 steps, from one initial draw on
 one served noise, for the SGNN and the MLP, and the SGNN on hlg_concept
 (started after the HLG rollout, as the divergence replay's CPU side is),
 tools/card_lockstep.py: the phase trainer_card_vs_cpu, with each
-parameter group's largest deviation an iteration and exact launches),
+parameter group's largest deviation an iteration and exact launches; the
+same lockstep at gcn_node_dim 24 and 40,000 edge slots, the general plan
+in its collect, update and eval, started after the range kernels: the
+phase trainer_card_vs_cpu_wide; and the two trainers graph against eager
+at that config, bit for bit, started after the HLG rollout:
+train_graph_vs_eager_wide),
 runs in child processes, each on a core of its own, beside the graft
 entry points; the divergence replay's CPU side starts after the HLG
 rollout.
@@ -198,6 +210,17 @@ CONCEPT_ENVS, CONCEPT_EVAL_ENVS = 32, 4
 # LOCKSTEP_EVAL_ENVS greedy eval envs, LOCKSTEP_ITERATIONS iterations and
 # a collect
 LOCKSTEP_ENVS, LOCKSTEP_EVAL_ENVS, LOCKSTEP_ITERATIONS = 8, 2, 2
+# the SGNN at a width and an edge count no shipped scenario has, which
+# JAX's trainer takes as it takes any config: HLG's gcn_node_dim 16 -> 24
+# (the kernels' runtime-width instantiations) and max_num_edges 3000 ->
+# 40000 (keys past 16 bits: the forward's general plan in the collect at
+# B 8, the update at B 256 and the eval at B 2; the backward's tile of 8)
+WIDE_SPECS = {'gcn_node_dim': 24, 'max_num_edges': 40000}
+# intra-op threads of the wide lockstep's CPU side, the longest child (on
+# 2 threads its update of 256 rows of 40,000 edges took 652-837 s of
+# CHILD_TIMEOUT's 900): done before the tail starts, it leaves the tail's
+# children the host's cores
+WIDE_REF_THREADS = 4
 
 
 def phase(name, t0, **kv):
@@ -271,8 +294,10 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
                     raise AssertionError(f'{shape}: library forward {lib_err}')
                 def kernel():
                     return segment_ops.segment_mean_counts(h, edges, mask, n)
-                device_ms, traces = kb.device_trace(kernel,
-                                                    kb.FORWARD_KERNEL)
+                names, per_call = kb.forward_kernels(
+                    segment_ops.forward_plan(B, n, e, d))
+                device_ms, traces = kb.device_trace(kernel, names,
+                                                    per_call=per_call)
                 times = fwd[key] = {
                     'ms': kb.cuda_time_ms(kernel),
                     'device_ms': device_ms, 'device_traces': traces,
@@ -285,7 +310,8 @@ def check_kernels(kb, segment_ops, dev, real_obs, t0, shapes=None,
             plan = segment_ops.forward_plan(B, n, e, d)
             phase('segment_mean_vs_plain', t0, shape=shape, graph=gname,
                   BEND=[B, e, n, d], plan=plan._asdict(),
-                  resident_per_sm=segment_ops.load_library('segment_mean')
+                  resident_per_sm=None if plan.general else
+                  segment_ops.load_library('segment_mean')
                   .segment_mean_resident(d, plan.threads, int(plan.staged),
                                          plan.shared_bytes),
                   max_abs_err=err, bitwise_repeat=True,
@@ -608,22 +634,28 @@ def update_graph_vs_eager(bench, kb, trainer, update_args, graph_epochs,
     return dict(out, replay_traces=traces, epoch_profiles=profiles)
 
 
-def train_graph_vs_eager(dev):
-    """Two HLG trainers from one seed, TGE_ENVS envs x TRAIN_LEN steps,
+def train_graph_vs_eager(dev, encoder_specs=None):
+    """Two HLG trainers from one seed (HLG's state_encoder_specs updated
+    with `encoder_specs`), TGE_ENVS envs x TRAIN_LEN steps,
     one replaying its captured collect, update and eval programs (which
     share one graph pool; the collect graph reads the parameters that
     Adam updates in place between its replays), the other eager=True:
     TGE_ITERATIONS iterations of collect -> update -> eval, then one more
     collect. Every sampled action, parameter, Adam state tensor, loss
     stat and eval reward must be equal, bit for bit, and some rows must
-    train. Runs in a TAIL child."""
+    train; the launches of both trainers are counted. Runs in a TAIL
+    child."""
+    import gc
     from urban_tpu_torch import bench
+    from urban_tpu_torch.ops import segment_ops
+    segment_ops.reset_launches()
     runs = {}
     for mode in ('graph', 'eager'):
         with tempfile.TemporaryDirectory() as run_dir:
             tr = bench.make_trainer(TGE_ENVS, TRAIN_LEN, dev, seed=0,
                                     eval_envs=TGE_EVAL_ENVS,
-                                    root_dir=run_dir, eager=mode == 'eager')
+                                    root_dir=run_dir, eager=mode == 'eager',
+                                    encoder_specs=encoder_specs)
             t0 = time.time()
             its = []
             for it in range(TGE_ITERATIONS):
@@ -646,6 +678,11 @@ def train_graph_vs_eager(dev):
                 'seconds': time.time() - t0,
                 'graphed': sorted({str(k[0]): v.graph is not None
                                    for k, v in tr.programs.items()}.items())}
+            del tr   # its graphs and pool go before the next trainer's
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = dict(segment_ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     g, e = runs['graph'], runs['eager']
     checks = {'graphed': g['graphed'] == [('collect', True), ('eval', True),
                                           ('update', True)]
@@ -670,7 +707,8 @@ def train_graph_vs_eager(dev):
                              f'fractions {trained}')
     return {'envs': TGE_ENVS, 'steps': TRAIN_LEN,
             'iterations': TGE_ITERATIONS, 'eval_envs': TGE_EVAL_ENVS,
-            'checks': checks,
+            'encoder_specs': encoder_specs, 'checks': checks,
+            'kernel_launches': launches, 'peak_allocated_gb': peak_gb,
             'per_iteration': [{k: it[k] for k in (
                 'losses', 'eval_reward', 'success_frac', 'episodes')}
                 for it in g['iterations']],
@@ -679,6 +717,28 @@ def train_graph_vs_eager(dev):
                            for m, r in runs.items()},
             't_update_s': {m: [it['t_update_s'] for it in r['iterations']]
                            for m, r in runs.items()}}
+
+
+def train_graph_vs_eager_wide(dev):
+    """train_graph_vs_eager at WIDE_SPECS: the general plan and the
+    runtime-width paths captured in the step and update graphs, bit for
+    bit against eager steps; each trainer's launches exact (TRAIN_LEN x
+    layers forward in each collect and eval, minibatch steps x layers of
+    each kernel in each update). Runs in a TAIL child."""
+    from urban_tpu_torch.host.utils.config import Config
+    out = train_graph_vs_eager(dev, WIDE_SPECS)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = Config('hlg', 0, root_dir=root)
+    layers = cfg.state_encoder_specs['num_gcn_layers']
+    mb = cfg.num_optim_epoch * max(
+        TGE_ENVS * TRAIN_LEN // cfg.mini_batch_size, 1) * layers
+    fwd = TRAIN_LEN * layers
+    expect = {'segment_mean': 2 * (TGE_ITERATIONS * (2 * fwd + mb) + fwd),
+              'segment_mean_backward': 2 * TGE_ITERATIONS * mb}
+    if out['kernel_launches'] != expect:
+        raise AssertionError(f'wide train graph vs eager launches '
+                             f'{out["kernel_launches"]} != {expect}')
+    return out
 
 
 @contextlib.contextmanager
@@ -1069,7 +1129,8 @@ def mlp_train_hlg(dev):
     return out
 
 
-def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg'):
+def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
+                        ref_threads=None):
     """tools/card_lockstep.py: the trainer on scenario `cfg_id` with the
     state encoder `encoder` on the card (eager=True) against the same
     trainer on the
@@ -1085,18 +1146,24 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg'):
     MLP none. Runs in a TAIL child, one an arm (the SGNN and the MLP on
     HLG, the SGNN on hlg_concept: E 4000, the forward's split plan at B 8
     and 2 and its unstaged plan at the update's B 256, the backward's
-    tile-16 plan, the concept term in the rewards compared)."""
+    tile-16 plan, the concept term in the rewards compared; the SGNN on
+    HLG with its state_encoder_specs updated with `encoder_specs`). The
+    CPU side runs on `ref_threads` intra-op threads (CHILD_THREADS where
+    not given)."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.ops import segment_ops
     from urban_tpu_torch.tools import card_lockstep
     segment_ops.reset_launches()
     report = card_lockstep.run(
-        str(dev), 'cpu', concurrent=True, ref_threads=CHILD_THREADS,
+        str(dev), 'cpu', concurrent=True,
+        ref_threads=ref_threads or CHILD_THREADS,
         encoder=encoder, cfg=cfg_id, num_envs=LOCKSTEP_ENVS,
         rollout_len=TRAIN_LEN,
-        eval_envs=LOCKSTEP_EVAL_ENVS, iterations=LOCKSTEP_ITERATIONS)
+        eval_envs=LOCKSTEP_EVAL_ENVS, iterations=LOCKSTEP_ITERATIONS,
+        encoder_specs=encoder_specs)
     torch.cuda.synchronize(dev)
     counted = dict(segment_ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if not report['ok']:
         raise AssertionError(f'trainer card vs cpu ({cfg_id}, {encoder}): '
                              f'{report["failures"][:20]}')
@@ -1122,13 +1189,15 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg'):
                              f'{counted} != {expect}, {total}')
     return {'arm': encoder if cfg_id == 'hlg' else f'{cfg_id}_{encoder}',
             'encoder': encoder, 'sizes': report['sizes'],
+            'widths': report['widths'],
             'plans': report['plans'],
             'per_iteration': [{k: it[k] for k in (
                 'adam_steps', 'parameter_bound', 'group_max_abs_diff',
                 'loss_abs_diff', 'eval_reward', 'episodes', 'failures',
                 'launches')} for it in report['iterations']],
             'collects': report['collects'],
-            'sides_seconds': report['seconds'], 'kernel_launches': counted}
+            'sides_seconds': report['seconds'], 'kernel_launches': counted,
+            'peak_allocated_gb': peak_gb}
 
 
 def trainer_card_vs_cpu_sgnn(dev):
@@ -1141,6 +1210,11 @@ def trainer_card_vs_cpu_mlp(dev):
 
 def trainer_card_vs_cpu_concept(dev):
     return trainer_card_vs_cpu(dev, 'sgnn', 'hlg_concept')
+
+
+def trainer_card_vs_cpu_wide(dev):
+    return trainer_card_vs_cpu(dev, 'sgnn', encoder_specs=WIDE_SPECS,
+                               ref_threads=WIDE_REF_THREADS)
 
 
 def ga_graph_vs_eager(dev):
@@ -2134,13 +2208,15 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('concept_train_export', 'cuda'),
         ('trainer_card_vs_cpu_sgnn', 'cuda'),
         ('trainer_card_vs_cpu_mlp', 'cuda'),
-        ('trainer_card_vs_cpu_concept', 'cuda'))
+        ('trainer_card_vs_cpu_concept', 'cuda'),
+        ('trainer_card_vs_cpu_wide', 'cuda'),
+        ('train_graph_vs_eager_wide', 'cuda'))
 # the TAIL phases that train: their launches go into the kernels' counts
+LOCKSTEP_TAIL = ('trainer_card_vs_cpu_sgnn', 'trainer_card_vs_cpu_mlp',
+                 'trainer_card_vs_cpu_concept')   # printed as one phase
 TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
-              'mlp_train_hlg', 'concept_train_export',
-              'trainer_card_vs_cpu_sgnn', 'trainer_card_vs_cpu_mlp',
-              'trainer_card_vs_cpu_concept')
-LOCKSTEP_TAIL = TRAIN_TAIL[-3:]   # printed as one phase, trainer_card_vs_cpu
+              'mlp_train_hlg', 'concept_train_export') + LOCKSTEP_TAIL + (
+              'trainer_card_vs_cpu_wide', 'train_graph_vs_eager_wide')
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -2507,6 +2583,33 @@ def smoke(t_start, children, keep_dir):
     fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
                                                real_obs, t0)
 
+    # ---- 3b. the kernels at the range shapes ---------------------------
+    # the widths and graphs past the shipped scenarios (kb.RANGE_SHAPES:
+    # gcn_node_dim 24, 128 and 6, max_num_edges 40000, a graph of 40,000
+    # nodes at widths 16 and 24), with the checks of phase 3; then the general plan forced at
+    # the HLG and Huizhou trainer graphs against the plan chosen there, and
+    # the runtime-width instantiation against the templated one, bit for bit
+    t0 = time.time()
+    f_r, b_r, e_f, e_b = check_kernels(kb, segment_ops, dev, {}, t0,
+                                       shapes=kb.RANGE_SHAPES)
+    fwd.update(f_r)
+    bwd.update(b_r)
+    fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
+    rng = np.random.default_rng(1)
+    forced = kb.general_vs_chosen(segment_ops, rng, dev)
+    widths = kb.any_width_vs_templated(segment_ops, rng, dev)
+    if not all(r['same_bits'] for r in forced + widths):
+        raise AssertionError(f'plans differ in bits: {forced} {widths}')
+    torch.cuda.empty_cache()
+    phase('range_kernels', t0, shapes=[list(s) for s in kb.RANGE_SHAPES],
+          general_vs_chosen=forced, any_width_vs_templated=widths)
+    # the wide lockstep (gcn_node_dim 24, 40,000 edge slots) from here on:
+    # its CPU side updates on 256 rows of 40,000 edges for 11-14 minutes on
+    # 2 threads (WIDE_REF_THREADS here), the longest child; its card side's
+    # memory is given back after 80-110 s
+    children['trainer_card_vs_cpu_wide:cuda'] = start_child(
+        'trainer_card_vs_cpu_wide', 'cuda')
+
     # ---- 4. model on the card vs the CPU --------------------------------
     t0 = time.time()
     model_cpu = bench.make_model(cfg, spec, seed=0, device='cpu')
@@ -2637,6 +2740,11 @@ def smoke(t_start, children, keep_dir):
     children['divergence_side:cpu'] = start_child('divergence_side', 'cpu')
     children['trainer_card_vs_cpu_concept:cuda'] = start_child(
         'trainer_card_vs_cpu_concept', 'cuda')
+    # so the wide graph-vs-eager, whose updates at 256 rows of 40,000 edges
+    # (a captured graph's pool, then eager) would add their peak to the
+    # tail's sixteen children on the card
+    children['train_graph_vs_eager_wide:cuda'] = start_child(
+        'train_graph_vs_eager_wide', 'cuda')
 
     # ---- 6. port GPU vs port CPU lockstep -------------------------------
     t0 = time.time()

@@ -123,3 +123,28 @@ def test_served_noise_checks_each_draw():
     noise.check_used('done')
     with pytest.raises(RuntimeError, match='ran out'):
         noise((2,), None, 'cpu')
+
+
+def test_encoder_specs_reach_both_sides():
+    """The tool's --gcn_node_dim / --max_num_edges override HLG's
+    state_encoder_specs on both sides (the wide config chip_smoke.py
+    holds on the card: width 24, 40,000 edge slots); two CPU sides of a
+    one-step collect agree bit for bit, and a record of another width is
+    refused. The full wide lockstep (8 x 35, two iterations) takes
+    minutes a side on the CPU, so only the card runs it
+    (chip_smoke.py's trainer_card_vs_cpu_wide)."""
+    specs = {'gcn_node_dim': 24, 'max_num_edges': 40000}
+    a, b = cl.run_sides('cpu', 'cpu', num_envs=1, rollout_len=1,
+                        eval_envs=1, iterations=0, encoder_specs=specs)
+    report = cl.compare(a, b)
+    assert report['ok'], report['failures']
+    assert report['sizes']['edges'] == 40000
+    assert report['widths'] == {'gcn_node_dim': 24}
+    assert a['init_params']['shared_net.node_encoder.weight'].shape[0] == 24
+    assert np.array_equal(a['collects'][0]['actions'],
+                          b['collects'][0]['actions'])
+    narrow = cl.run_side('cpu', num_envs=1, rollout_len=1, eval_envs=1,
+                         iterations=0, encoder_specs={
+                             'max_num_edges': 40000})
+    with pytest.raises(ValueError):
+        cl.compare(a, narrow)

@@ -333,3 +333,82 @@ def test_load_flax_params_rejects_a_wrong_mlp_tree():
                          jax.tree.map(np.asarray, sgnn_params))
     with pytest.raises(KeyError):
         load_flax_params(ActorCritic(**SMALL), {'params': tree})
+
+
+# the SGNN at a width without an instantiation of its own in the kernels
+# (the config's gcn_node_dim 16 -> 24); JAX's encoder takes any width
+WIDE = dict(SMALL, gcn_node_dim=24)
+
+
+def test_forward_at_gcn_node_dim_24_matches_jax_pallas(pallas_mode):
+    """The encoder's outputs, logits and value at gcn_node_dim 24 against
+    the JAX model aggregating through its Pallas kernel (interpret mode),
+    with test_small_forward_matches_jax_pallas's tolerances."""
+    obs = _small_obs(seed=5)
+    jm, params, tm = _models(WIDE, obs, seed=4)
+    jobs = tuple(jnp.asarray(x) for x in obs)
+    j_enc = jm.apply(params, jobs, method=lambda m, o: m.shared_net(o))
+    j_out = jm.apply(params, jobs)
+    with torch.no_grad():
+        t_enc = tm.shared_net(_t(obs))
+        t_out = tm(_t(obs))
+    assert t_enc[1].shape[-1] == 24
+    for k in range(3):
+        np.testing.assert_allclose(t_enc[k].numpy(), np.asarray(j_enc[k]),
+                                   rtol=1e-5, atol=1e-5)
+    for k in (0, 1, 3):
+        np.testing.assert_allclose(t_out[k].numpy(), np.asarray(j_out[k]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_ppo_gradients_at_gcn_node_dim_24_match_jax(monkeypatch):
+    """One PPO loss and its parameter gradients at gcn_node_dim 24 against
+    jax.value_and_grad of the JAX loss on the same parameters. The JAX
+    encoder aggregates through its f32 'scatter' backend here: its Pallas
+    kernel has no gradient (tests/test_torch_ppo.py, whose tolerances
+    these are: values 1e-5, gradients atol 1e-5 + rtol 1e-4)."""
+    from urban_tpu.rl import ppo as jppo
+    from urban_tpu_torch.models.convert import to_flax_params
+    from urban_tpu_torch.rl import ppo as tppo
+    monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
+    obs = _small_obs(B=8, seed=6)
+    jm, params, tm = _models(WIDE, obs, seed=7)
+    tm.train()
+    rng = np.random.default_rng(11)
+    actions = np.stack([
+        np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                  for m in obs[6]]),
+        np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                  for m in obs[7]])], -1).astype(np.int32)
+    returns, adv, noise = (rng.normal(size=(8, 1)).astype(np.float32)
+                           for _ in range(3))
+    exps = (rng.random(8) < 0.7).astype(np.float32)
+    valid = (rng.random(8) < 0.8).astype(np.float32)
+    jobs = tuple(jnp.asarray(x) for x in obs)
+    lp, _, _ = jm.apply(params, jobs, jnp.asarray(actions),
+                        method='log_prob_entropy_value')
+    fixed = np.asarray(lp) + 0.3 * noise
+    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(
+        lambda p: jppo.ppo_loss(jm, p, jobs, *(jnp.asarray(x) for x in (
+            actions, returns, adv, fixed, exps)), jppo.PPOConfig(),
+            jnp.asarray(valid)), has_aux=True))(params)
+    t_loss, t_stats = tppo.ppo_loss(
+        tm, _t(obs), *_t((actions, returns, adv, fixed, exps)),
+        tppo.PPOConfig(), torch.as_tensor(valid))
+    t_loss.backward()
+    for k in tppo.STAT_KEYS:
+        np.testing.assert_allclose(float(t_stats[k]), float(j_stats[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    g = ActorCritic(**WIDE)
+    with torch.no_grad():
+        for p, q in zip(g.parameters(), tm.parameters()):
+            p.copy_(q.grad if q.grad is not None else torch.zeros_like(q))
+    a = jax.tree_util.tree_flatten_with_path(to_flax_params(g))[0]
+    b = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(np.asarray, j_grads))[0])
+    assert {k for k, _ in a} == set(b)
+    for k, v in a:
+        np.testing.assert_allclose(v, b[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(k))
+    edge_fc = [v for k, v in a if 'edge_fc' in jax.tree_util.keystr(k)]
+    assert edge_fc and all(np.abs(v).max() > 0 for v in edge_fc)

@@ -157,7 +157,8 @@ def _bad_backward_inputs():
         'edges_int64': (g, counts, edges.long(), mask, TypeError),
         'mask_shape': (g, counts, edges, mask[:, :-1], ValueError),
         'grad_rank': (g[0], counts, edges, mask, ValueError),
-        'unsupported_width': (g[..., :6].contiguous(), counts, edges, mask,
+        # any width D >= 1 is taken; a width of 0 is not
+        'unsupported_width': (g[..., :0].contiguous(), counts, edges, mask,
                               ValueError),
         'grad_not_contiguous': (g.transpose(0, 1).contiguous().transpose(0, 1),
                                 counts, edges, mask, ValueError),
@@ -185,32 +186,35 @@ def test_backward_wrapper_rejects_bad_inputs(name):
 
 
 def _forward_max_nodes():
-    """The largest N the forward kernel takes (segment_ops.forward_plan:
-    a CTA of 1024 threads holds a word a warp, 6 bytes a node and 8 an
-    edge of shared memory within one block's limit), at E = 0."""
+    """The largest N the forward's shared-memory plans take
+    (segment_ops.forward_plan: a CTA of 1024 threads holds a word a warp,
+    6 bytes a node and 8 an edge of shared memory within one block's
+    limit), at E = 0; the general plan takes every N above."""
     lo, hi = 1, 1 << 20
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        try:
-            segment_ops.forward_plan(1, mid, 0, 8)
-            lo = mid
-        except ValueError:
+        if segment_ops.forward_plan(1, mid, 0, 8).general:
             hi = mid
+        else:
+            lo = mid
     return lo
 
 
 FORWARD_MAX_NODES = _forward_max_nodes()
 
 
-@pytest.mark.parametrize('width', segment_ops.SUPPORTED_DIMS)
+@pytest.mark.parametrize('width', segment_ops.TEMPLATED_DIMS)
 def test_backward_plan_covers_every_graph_the_forward_takes(width):
-    """For every N the forward accepts: the tile is a multiple of 4
-    columns that divides D, the shared memory is the tile's N rows and
-    within one block's limit, and the gather path (0 bytes, full rows) is
-    taken exactly where not even 4 columns of N rows fit. Blocks have 512
+    """For every N the forward's shared-memory plans take, and a few the
+    general plan takes above: the tile is a multiple of 4 columns that
+    divides D, the shared memory is the tile's N rows and within one
+    block's limit, and the gather path (0 bytes, full rows) is taken
+    exactly where not even 4 columns of N rows fit. Blocks have 512
     threads where two of them share an SM (as at the trainer's and the
     rollout's graphs), else 1024."""
     gather = []
+    above = [FORWARD_MAX_NODES + 1, 40000, 10 ** 5, 10 ** 6]
+    assert all(segment_ops.forward_plan(1, n, 0, 8).general for n in above)
     for n in range(1, FORWARD_MAX_NODES + 1):
         plan = segment_ops.backward_plan(n, width)
         assert plan.tile % 4 == 0 and width % plan.tile == 0
@@ -225,11 +229,35 @@ def test_backward_plan_covers_every_graph_the_forward_takes(width):
             gather.append(n)
         assert staged == (n * 4 * 4 <= segment_ops.SHARED_BYTES_PER_BLOCK)
     assert gather == list(range(14529, FORWARD_MAX_NODES + 1))
+    for n in above:
+        assert segment_ops.backward_plan(n, width) == (width, 0, 1024)
     if width == 16:
         assert segment_ops.backward_plan(1344, 16) == (16, 86016, 512)
         assert segment_ops.backward_plan(1088, 16) == (16, 69632, 512)
     if width == 64:
         assert segment_ops.backward_plan(4096, 64) == (8, 131072, 1024)
+
+
+@pytest.mark.parametrize('width', [6, 24, 128])
+def test_backward_plan_any_width(width):
+    """Widths without an instantiation of their own: a multiple of 4 (24,
+    128) stages its widest tile of 4-64 columns that divides it, as the
+    templated widths do (8 columns at D 24 beside the trainer's 1344
+    nodes, two blocks an SM); one that is not (6) takes the gather path
+    with its full rows, the runtime-width instantiation; past what shared
+    memory holds, every width takes the gather path."""
+    for n in (1, 1000, 1344, 14528, 14529, 40000):
+        plan = segment_ops.backward_plan(n, width)
+        staged = width % 4 == 0 and n * 16 <= \
+            segment_ops.SHARED_BYTES_PER_BLOCK
+        assert (plan.shared_bytes > 0) == staged, (n, plan)
+        if staged:
+            assert plan.tile % 4 == 0 and width % plan.tile == 0
+            assert plan.shared_bytes == n * plan.tile * 4
+        else:
+            assert plan == (width, 0, 1024)
+    want = {6: (6, 0, 1024), 24: (8, 43008, 512), 128: (16, 86016, 512)}
+    assert segment_ops.backward_plan(1344, width) == want[width]
 
 
 @pytest.mark.gpu

@@ -12,6 +12,7 @@ JAX is imported inside the tests that use it, so that the card-only test
 collects on a machine without JAX:
     python -m pytest tests/test_torch_segment_ops.py -m gpu --noconftest
 """
+import contextlib
 import types
 
 import numpy as np
@@ -105,7 +106,8 @@ def _bad_inputs():
         'edges_shape': (h, edges[:, :-1], mask, N, ValueError),
         'mask_shape': (h, edges, mask[:, :-1], N, ValueError),
         'h_rank': (h[0], edges, mask, N, ValueError),
-        'unsupported_width': (h[..., :6].contiguous(), edges, mask, N,
+        # any width D >= 1 is taken; a width of 0 is not
+        'unsupported_width': (h[..., :0].contiguous(), edges, mask, N,
                               ValueError),
         'not_contiguous': (h.transpose(0, 1).contiguous().transpose(0, 1),
                            edges, mask, N, ValueError),
@@ -209,6 +211,56 @@ def test_kernel_on_card():
     assert kinds == {(False, False), (True, False), (False, True)}
 
 
+@pytest.mark.gpu
+def test_general_plan_and_any_width_on_card():
+    """The general plan and the runtime-width instantiation on the card:
+    at the trainer's graph (E=3000, N=1344) each gives the bits of the
+    plan forward_plan chooses there, at D 16, 24 and 6 (scalar loads) and
+    the CPU plain version's bits there; at 40,000 edge slots
+    (the general plan chosen) and D 24, 6 and 1, the CPU plain version's
+    bits and counts, and the backward equal to its plain version; then
+    the general plan's sorts on hubs of 300 and 10,000 keys (skips
+    without a CUDA device; chip_smoke.py runs the same at
+    kernel_bench.RANGE_SHAPES)."""
+    if not torch.cuda.is_available():
+        pytest.skip('requires a CUDA device')
+    dev = torch.device('cuda')
+    for B, E, N, D in ((8, 3000, 1344, 16), (8, 3000, 1344, 24),
+                       (8, 3000, 1344, 6), (2, 40000, 1344, 24), (2, 40000, 1344, 6),
+                       (2, 40000, 1344, 1)):
+        h, edges, mask, N = _graph('masked_sentinel', B=B, E=E, N=N, D=D)
+        cpu = (torch.as_tensor(h), torch.as_tensor(edges),
+               torch.as_tensor(mask))
+        args = tuple(x.to(dev) for x in cpu)
+        chosen = segment_ops.forward_plan(B, N, E, D)
+        plans = [chosen, segment_ops.general_plan(),
+                 chosen._replace(any_width=True)]
+        want = segment_ops.segment_mean_counts_ref(*cpu, N)
+        for plan in plans:
+            out, counts = segment_ops.segment_mean_counts(*args, N, plan)
+            assert torch.equal(out.cpu(), want[0]), (B, E, D, plan)
+            assert torch.equal(counts.cpu(), want[1]), (B, E, D, plan)
+        g = torch.randn(B, N, D, device=dev)
+        assert torch.equal(
+            segment_ops.segment_mean_backward(g, counts, *args[1:]),
+            segment_ops.segment_mean_backward_ref(g, counts, *args[1:]))
+    # the general plan's sorts: buckets of ~42 keys (each sorted by a CTA),
+    # a hub of 300 keys (sorted in shared memory) and one of 10,000 (in
+    # device memory), still bipartite: the CPU plain version's bits
+    h, edges, mask, N = _graph('bipartite', B=2, E=40000, N=1344, D=8)
+    edges[:, :300, 0] = 0
+    edges[:, 300:10300, 0] = 1
+    mask[:, :10300] = True
+    cpu = (torch.as_tensor(h), torch.as_tensor(edges), torch.as_tensor(mask))
+    assert segment_ops.forward_plan(2, N, 40000, 8).general
+    out, counts = segment_ops.segment_mean_counts(
+        *(x.to(dev) for x in cpu), N)
+    want = segment_ops.segment_mean_counts_ref(*cpu, N)
+    assert float(want[1][:, 1].min()) >= 10000
+    assert torch.equal(out.cpu(), want[0]) and torch.equal(counts.cpu(),
+                                                           want[1])
+
+
 def _bench_cases():
     from urban_tpu_torch import kernel_bench as kb
     return [(name, b, n, e, d) for name, e, n, d in kb.SHAPES + (
@@ -285,11 +337,25 @@ def _takes(n, e, d):
             + segment_ops.FORWARD_STATIC_BYTES <= 232448)
 
 
+def _shared_memory_plan(plan, b, n, e, d):
+    """A plan of the shared-memory kind for (B, N, E, D): a split of the
+    kernel's, a block size it is built for, its shared memory, and the
+    kernel's own choice of instantiation by D (no any_width override)."""
+    return (not plan.general and plan.split in segment_ops.FORWARD_SPLITS
+            and plan.threads in segment_ops.FORWARD_THREADS
+            and not plan.any_width
+            and plan.shared_bytes == _shared(n, e, d, plan.split,
+                                             plan.threads, plan.staged))
+
+
 def test_forward_plan_accepts_every_graph_taken_before():
     """Every (N, E) that the kernel took before forward_plan is still
-    taken, at every batch and width, on a grid of E with the largest N
-    each took, and forward_plan raises ValueError for the graphs it does
-    not take (N past its own limit, no nodes, keys past 16 bits)."""
+    taken by the same shared-memory plan, at every batch and templated
+    width, on a grid of E with the largest N each took; past that N, and
+    where the keys 2 e + 1 pass 16 bits, the general plan is chosen; only
+    invalid inputs (no nodes, no width) raise ValueError. A width without
+    an instantiation of its own takes the shared-memory plans too (the
+    kernel then runs its runtime-width one)."""
     for e in range(0, 14600, 97):
         n_old = max((n for n in (
             (232448 - 64 - 4 - 16 * e) // 12 - k for k in range(3))
@@ -297,30 +363,36 @@ def test_forward_plan_accepts_every_graph_taken_before():
         if n_old == 0:
             continue
         for n in (1, n_old // 2, n_old):
-            for d in segment_ops.SUPPORTED_DIMS:
+            for d in segment_ops.TEMPLATED_DIMS:
                 assert _takes(n, e, d)
                 for b in (1, 64, 192, 256):
                     plan = segment_ops.forward_plan(b, n, e, d)
                     assert plan.shared_bytes <= 232448
+                    assert _shared_memory_plan(plan, b, n, e, d)
         lo, hi = n_old, 10 ** 6   # the largest N taken at this E
         while hi - lo > 1:
             mid = (lo + hi) // 2
             lo, hi = (mid, hi) if _takes(mid, e, 16) else (lo, mid)
-        segment_ops.forward_plan(256, lo, e, 16)
-        with pytest.raises(ValueError):
-            segment_ops.forward_plan(256, lo + 1, e, 16)
+        assert _shared_memory_plan(segment_ops.forward_plan(256, lo, e, 16),
+                                   256, lo, e, 16)
+        assert segment_ops.forward_plan(256, lo + 1, e, 16) == \
+            segment_ops.general_plan()
     with pytest.raises(ValueError):
         segment_ops.forward_plan(1, 0, 10, 16)
     with pytest.raises(ValueError):
-        segment_ops.forward_plan(1, 10, 32768, 16)
-    with pytest.raises(ValueError):
-        segment_ops.forward_plan(1, 10, 10, 12)
+        segment_ops.forward_plan(1, 10, 10, 0)
+    assert segment_ops.forward_plan(1, 10, 32767, 16).general
+    assert segment_ops.forward_plan(1, 10, 32768, 16).general
+    plan = segment_ops.forward_plan(1, 10, 10, 12)
+    assert _shared_memory_plan(plan, 1, 10, 10, 12)
 
 
 def test_graph_not_taken_raises_before_any_launch(monkeypatch):
-    """On a CUDA tensor a graph that forward_plan does not take raises
-    ValueError before anything is allocated or launched (the card's path
-    with the device stood in for, so that it runs here)."""
+    """On a CUDA tensor a graph past what one CTA's shared memory holds
+    launches the general plan, once, with the scratch of
+    forward_scratch_words allocated on the tensor's device (the card's
+    path with the device stood in for, so that it runs here: the scratch
+    lands on the CPU)."""
     n = 1
     while _takes(n * 2, 4, 8):
         n *= 2
@@ -329,17 +401,36 @@ def test_graph_not_taken_raises_before_any_launch(monkeypatch):
     h = torch.zeros((1, 4, 8))
     edges = torch.zeros((1, 4, 2), dtype=torch.int32)
     mask = torch.ones((1, 4), dtype=torch.bool)
-    called = []
+    called, allocated = [], []
+    empty = torch.empty
+
+    def on_card(*shape, dtype=None, device=None):
+        allocated.append((shape, dtype, device))
+        return empty(*shape, dtype=dtype)
     monkeypatch.setattr(segment_ops, '_device',
                         lambda t: torch.device('cuda'))
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, 'empty', on_card)
     monkeypatch.setattr(segment_ops, 'device_limits',
                         lambda dev: segment_ops.H100_SXM)
+    monkeypatch.setattr(segment_ops, '_stream', lambda dev: 0)
     monkeypatch.setattr(segment_ops, '_launch',
                         lambda *a: called.append(a))
-    before = dict(segment_ops.launches)
-    with pytest.raises(ValueError):
-        segment_ops.segment_mean_counts(h, edges, mask, n + 1)
-    assert not called and segment_ops.launches == before
+    assert segment_ops.forward_plan(1, n, 4, 8).general is False
+    plan = segment_ops.forward_plan(1, n + 1, 4, 8)
+    assert plan == segment_ops.general_plan()
+    assert plan.shared_bytes == segment_ops.forward_shared_bytes(
+        n + 1, 4, 8, 1, plan.threads, False, general=True)
+    out, counts = segment_ops.segment_mean_counts(h, edges, mask, n + 1)
+    assert out.shape == (1, n + 1, 8) and counts.shape == (1, n + 1)
+    (args,) = called
+    words = segment_ops.forward_scratch_words(1, n + 1, 4)
+    assert words == (n + 1) + (n + 2) + 8
+    assert allocated[-1] == ((words,), torch.int32, torch.device('cuda'))
+    assert all(dev == torch.device('cuda') for *_, dev in allocated)
+    assert args[:2] == ('segment_mean', 'segment_mean_general_f32')
+    assert args[8:] == (words, 1, 4, n + 1, 8, 0)
 
 
 def _props(sms, per_block, per_sm):
@@ -404,3 +495,78 @@ def test_empty_batch_gives_zeros_without_launch(B, E):
     segment_ops.segment_mean(h, edges, mask, N).sum().backward()
     assert h.grad.shape == (B, E, D)
     assert segment_ops.launches == before
+
+
+@pytest.mark.parametrize('width', [1, 6, 24, 48, 128])
+def test_any_width_matches_jax_on_a_large_graph(width):
+    """segment_mean, its counts and SegmentMean's gradient at any width,
+    on a graph of 40,000 edge slots and 1,344 nodes (the HLG trainer's
+    nodes with max_num_edges 40000), against JAX's one-hot Pallas kernel
+    (interpret mode) and segment_mean_xla, and the gradient against
+    jax.grad of segment_mean_xla on the unmasked rows (segment_mean_xla
+    scatters masked rows too: tests/test_torch_segment_grad.py). atol =
+    rtol = 1e-5: f32 sums in another order."""
+    import jax
+    import jax.numpy as jnp
+    from urban_tpu.ops.pallas import segment_ops as jseg
+    h, edges, mask, N = _graph('masked_sentinel', B=2, E=40000, N=1344,
+                               D=width, seed=width)
+    g = np.random.default_rng(width + 1).normal(
+        size=(2, N, width)).astype(np.float32)
+    th = torch.as_tensor(h).requires_grad_()
+    out = segment_ops.segment_mean(th, torch.as_tensor(edges),
+                                   torch.as_tensor(mask), N)
+    dh, = torch.autograd.grad(out, th, torch.as_tensor(g))
+    _, counts = segment_ops.segment_mean_counts(
+        torch.as_tensor(h), torch.as_tensor(edges), torch.as_tensor(mask), N)
+    jh, je, jm = jnp.asarray(h), jnp.asarray(edges), jnp.asarray(mask)
+    xla = np.asarray(jseg.segment_mean_xla(jh, je, jm, N))
+    pallas = np.asarray(jseg.segment_mean_onehot_pallas(jh, je, jm, N,
+                                                        interpret=True))
+    for want in (xla, pallas):
+        np.testing.assert_allclose(out.detach().numpy(), want, rtol=ATOL,
+                                   atol=ATOL)
+    ones = jseg.segment_mean_onehot_pallas(jnp.ones_like(jh), je, jm, N,
+                                           interpret=True)
+    np.testing.assert_allclose(
+        (counts / (counts + 1e-6)).numpy()[..., None].repeat(width, -1),
+        np.asarray(ones), rtol=ATOL, atol=ATOL)
+    j_dh = np.asarray(jax.grad(lambda x: jnp.sum(
+        jseg.segment_mean_xla(x, je, jm, N) * jnp.asarray(g)))(jh))
+    np.testing.assert_allclose(dh.numpy()[mask], j_dh[mask], rtol=ATOL,
+                               atol=ATOL)
+    assert not dh.numpy()[~mask].any()
+
+
+# (B, N, E, D) the shared-memory plans do not take: keys past 16 bits, or a
+# CSR past one CTA (the HLG trainer's nodes with 28,100 edge slots)
+GENERAL_GRAPHS = [(256, 1344, 28100, 16), (256, 1344, 40000, 24),
+                  (8, 40000, 100000, 16), (1, 1344, 40000, 24)]
+
+
+def test_forward_plan_takes_every_graph():
+    """forward_plan returns a plan, and raises nothing, for graphs past
+    one CTA or 16-bit keys (the general plan) and for every width at the
+    graphs the shared-memory plans take; kernel_bench's range shapes get
+    the plans their rows are timed with."""
+    from urban_tpu_torch import kernel_bench as kb
+    for b, n, e, d in GENERAL_GRAPHS:
+        assert segment_ops.forward_plan(b, n, e, d) == \
+            segment_ops.general_plan()
+    for d in (1, 3, 6, 12, 24, 48, 128, 1024):
+        for e in (1000, 3000):
+            for b in (1, 64, 256):
+                plan = segment_ops.forward_plan(b, 1344, e, d)
+                assert _shared_memory_plan(plan, b, 1344, e, d), (b, d)
+            # staged only past the SMs, where the rows fit beside the CSR
+            # and the bulk copy moves whole 16-byte pieces (3000 rows of
+            # 24 floats or more do not fit)
+            fits = _shared(1344, e, d, 1, 1024, True) + 16 <= 232448
+            assert plan.staged == (fits and d % 4 == 0), (e, d)
+            assert plan.staged == (d in (12,) or e == 1000 and d in (
+                12, 24, 48)), (e, d)
+    for name, e, n, d in kb.RANGE_SHAPES:
+        for b in kb.BATCHES[name]:
+            plan = segment_ops.forward_plan(b, n, e, d)
+            assert plan.general == (e > 28029), (name, b)
+            assert plan.general or _shared_memory_plan(plan, b, n, e, d)

@@ -195,18 +195,22 @@ def run_failure_replay(num_envs: int = 256, num_steps: int = 30,
 def make_trainer(num_envs: int = 256, rollout_len: int = 50, device='cuda',
                  seed: int = 0, eval_envs: int = 16, root_dir: str = None,
                  name: str = 'hlg', eager: bool = False,
-                 encoder: str = 'sgnn'):
+                 encoder: str = 'sgnn', encoder_specs: dict = None):
     """The PPO trainer of scenario `name` at the JAX trainer's own
     capacities; its run logs go under root_dir (default: the temp
     directory). eager: collect, eval and update step eagerly on the card
     instead of replaying their graphs. encoder: 'sgnn' or the MLP
-    ablation's 'mlp'."""
+    ablation's 'mlp'. encoder_specs: entries of the config's
+    state_encoder_specs to override (gcn_node_dim, max_num_edges, ...)."""
     from urban_tpu_torch.host.utils.config import Config
     from urban_tpu_torch.rl.trainer import Trainer
     set_precision_flags()
     root_dir = root_dir or os.path.join(tempfile.gettempdir(),
                                         'urban_tpu_torch')
     cfg = Config(name, seed, tmp=False, root_dir=root_dir)
+    if encoder_specs:
+        cfg.state_encoder_specs = dict(cfg.state_encoder_specs,
+                                       **encoder_specs)
     return Trainer(cfg, num_envs=num_envs, rollout_len=rollout_len,
                    eval_envs=eval_envs, device=device, eager=eager,
                    encoder=encoder)

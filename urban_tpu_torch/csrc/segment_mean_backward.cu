@@ -47,9 +47,19 @@
 //      16-byte streaming store (st.global.cs: dh is written once and not
 //      read back by this kernel).
 // Where no tile of 4 columns of N rows fits in shared memory (N above
-// 14,528), the plan has 0 shared bytes and the same kernel takes its
-// gather path: full rows, each thread reading its two rows of g and the
-// two counts from device memory and dividing per use.
+// 14,528), or D has no divisor that is a multiple of 4, the plan has 0
+// shared bytes and the same kernel takes its gather path: full rows, each
+// thread reading its two rows of g and the two counts from device memory
+// and dividing per use, each element's edges spread over enough blocks to
+// give the card about two an SM (a block an element would leave a batch of
+// 8 on 8 SMs).
+//
+// Widths: any D >= 1. A staged tile is a multiple of 4 columns dividing D
+// (D itself runtime), so every D with such a divisor stages; the gather
+// path has its own instantiations for D in {8, 16, 32, 64} and a
+// runtime-width one (T = 0 below) for any other D, with float4 pieces
+// where D % 4 == 0 and scalar loads and stores else (forced at D = 16 on
+// 40,000 nodes, the runtime-width one took 10-18% longer: PERF.md).
 //
 // Staging goes through registers rather than TMA because every element
 // has to pass through a division anyway; a bulk copy would add a shared
@@ -67,55 +77,43 @@ __device__ __forceinline__ float4 scale(float4 x, float c) {
   return make_float4(x.x / d, x.y / d, x.z / d, x.w / d);
 }
 
-// T: columns of the tile; kStaged: scaled rows in shared memory (else the
-// gather path, T == D); kThreads: 512 or 1024, at most 64 registers each
-template <int T, bool kStaged, int kThreads>
-__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-segment_mean_backward_kernel(const float* __restrict__ g,         // (B, N, D)
-                             const float* __restrict__ counts,    // (B, N)
-                             const int32_t* __restrict__ edges,   // (B, E, 2)
-                             const uint8_t* __restrict__ mask,    // (B, E)
-                             float* __restrict__ dh,              // (B, E, D)
-                             int E, int N, int D) {
-  constexpr int Q = T / 4;          // float4 columns of a tile
-  extern __shared__ float4 rows[];  // (N, Q) scaled rows of the tile
-  const int tiles = D / T;
-  const int b = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) * T;
-  const int tid = threadIdx.x;
-  const int D4 = D / 4;
-  const float* cb = counts + (size_t)b * N;
-  const float4* gb =
-      reinterpret_cast<const float4*>(g + (size_t)b * N * D + c0);
+__device__ __forceinline__ float scale(float x, float c) {
+  return x / (c + 1e-6f);
+}
 
-  if (kStaged) {
-    const int total = N * Q;
-    for (int i0 = tid; i0 < total; i0 += kStageUnroll * kThreads) {
-      float4 x[kStageUnroll];
-      float c[kStageUnroll];
-#pragma unroll
-      for (int k = 0; k < kStageUnroll; ++k) {
-        const int i = i0 + k * kThreads;
-        if (i < total) {
-          x[k] = __ldg(gb + (size_t)(i / Q) * D4 + i % Q);
-          c[k] = __ldg(cb + i / Q);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kStageUnroll; ++k) {
-        const int i = i0 + k * kThreads;
-        if (i < total) rows[i] = scale(x[k], c[k]);
-      }
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
 
-  const int2* eb = reinterpret_cast<const int2*>(edges) + (size_t)b * E;
-  const uint8_t* mb = mask + (size_t)b * E;
-  float4* ob = reinterpret_cast<float4*>(dh + (size_t)b * E * D + c0);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int total = E * Q;
-  for (int j0 = tid; j0 < total; j0 += kEdgeUnroll * kThreads) {
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+
+template <typename V>
+__device__ __forceinline__ V zero();
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ float zero<float>() {
+  return 0.f;
+}
+
+// The gather path at a runtime width: element b's (E, C) pieces of dh
+// (V: float4 or float, C = D / (sizeof V / 4)), each (0 + s_u) + s_v from
+// the two endpoints' rows of g scaled per use, as the templated gather;
+// this block takes the chunks of kEdgeUnroll x kThreads pieces slice,
+// slice + slices, ...
+template <typename V, int kThreads>
+__device__ __forceinline__ void gather_any(const float* g, const float* cb,
+                                           const int2* eb, const uint8_t* mb,
+                                           float* dh, int E, int N, int D,
+                                           int slice, int slices) {
+  const int C = D / (int)(sizeof(V) / sizeof(float));
+  const V* gb = reinterpret_cast<const V*>(g);
+  V* ob = reinterpret_cast<V*>(dh);
+  const int total = E * C;
+  for (int j0 = slice * kEdgeUnroll * kThreads + threadIdx.x; j0 < total;
+       j0 += slices * kEdgeUnroll * kThreads) {
     int u[kEdgeUnroll], v[kEdgeUnroll];
 #pragma unroll
     for (int k = 0; k < kEdgeUnroll; ++k) {
@@ -123,8 +121,8 @@ segment_mean_backward_kernel(const float* __restrict__ g,         // (B, N, D)
       u[k] = -1;
       v[k] = -1;
       if (j < total) {
-        const int2 uv = __ldg(eb + j / Q);
-        const bool keep = __ldg(mb + j / Q) != 0;
+        const int2 uv = __ldg(eb + j / C);
+        const bool keep = __ldg(mb + j / C) != 0;
         u[k] = (keep && uv.x >= 0 && uv.x < N) ? uv.x : -1;
         v[k] = (keep && uv.y >= 0 && uv.y < N) ? uv.y : -1;
       }
@@ -133,19 +131,117 @@ segment_mean_backward_kernel(const float* __restrict__ g,         // (B, N, D)
     for (int k = 0; k < kEdgeUnroll; ++k) {
       const int j = j0 + k * kThreads;
       if (j >= total) continue;
-      const int q = j % Q;
-      float4 su = zero, sv = zero;
-      if (kStaged) {
-        if (u[k] >= 0) su = rows[u[k] * Q + q];
-        if (v[k] >= 0) sv = rows[v[k] * Q + q];
-      } else {
-        if (u[k] >= 0) su = scale(__ldg(gb + (size_t)u[k] * D4 + q),
-                                  __ldg(cb + u[k]));
-        if (v[k] >= 0) sv = scale(__ldg(gb + (size_t)v[k] * D4 + q),
-                                  __ldg(cb + v[k]));
+      const int q = j % C;
+      V su = zero<V>(), sv = zero<V>();
+      if (u[k] >= 0) su = scale(__ldg(gb + (size_t)u[k] * C + q),
+                                __ldg(cb + u[k]));
+      if (v[k] >= 0) sv = scale(__ldg(gb + (size_t)v[k] * C + q),
+                                __ldg(cb + v[k]));
+      __stcs(ob + (size_t)(j / C) * C + q, add(su, sv));
+    }
+  }
+}
+
+// T: columns of the tile; kStaged: scaled rows in shared memory (else the
+// gather path, T == D, or T == 0 for a width without its own
+// instantiation, with `slices` blocks an element, each taking every
+// slices-th chunk of its edges; 1 where staged); kThreads: 512 or 1024, at
+// most 64 registers each
+template <int T, bool kStaged, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+segment_mean_backward_kernel(const float* __restrict__ g,         // (B, N, D)
+                             const float* __restrict__ counts,    // (B, N)
+                             const int32_t* __restrict__ edges,   // (B, E, 2)
+                             const uint8_t* __restrict__ mask,    // (B, E)
+                             float* __restrict__ dh,              // (B, E, D)
+                             int E, int N, int D, int slices) {
+  if constexpr (T == 0) {   // the gather path at any width
+    const size_t b = blockIdx.x / slices;
+    const int slice = blockIdx.x % slices;
+    const float* gb = g + b * N * D;
+    const int2* eb = reinterpret_cast<const int2*>(edges) + b * E;
+    float* ob = dh + b * E * D;
+    if (D % 4 == 0) {
+      gather_any<float4, kThreads>(gb, counts + b * N, eb, mask + b * E, ob,
+                                   E, N, D, slice, slices);
+    } else {
+      gather_any<float, kThreads>(gb, counts + b * N, eb, mask + b * E, ob,
+                                  E, N, D, slice, slices);
+    }
+  } else {
+    constexpr int Q = T / 4;          // float4 columns of a tile
+    extern __shared__ float4 rows[];  // (N, Q) scaled rows of the tile
+    const int tiles = D / T;          // 1 on the gather path (T == D)
+    const int b = blockIdx.x / (kStaged ? tiles : slices);
+    const int c0 = kStaged ? (blockIdx.x % tiles) * T : 0;
+    // the gather path's block takes every slices-th chunk of the edges
+    const int first = kStaged ? 0 : (blockIdx.x % slices) * kEdgeUnroll *
+                                        kThreads;
+    const int stride = (kStaged ? 1 : slices) * kEdgeUnroll * kThreads;
+    const int tid = threadIdx.x;
+    const int D4 = D / 4;
+    const float* cb = counts + (size_t)b * N;
+    const float4* gb =
+        reinterpret_cast<const float4*>(g + (size_t)b * N * D + c0);
+
+    if (kStaged) {
+      const int total = N * Q;
+      for (int i0 = tid; i0 < total; i0 += kStageUnroll * kThreads) {
+        float4 x[kStageUnroll];
+        float c[kStageUnroll];
+#pragma unroll
+        for (int k = 0; k < kStageUnroll; ++k) {
+          const int i = i0 + k * kThreads;
+          if (i < total) {
+            x[k] = __ldg(gb + (size_t)(i / Q) * D4 + i % Q);
+            c[k] = __ldg(cb + i / Q);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kStageUnroll; ++k) {
+          const int i = i0 + k * kThreads;
+          if (i < total) rows[i] = scale(x[k], c[k]);
+        }
       }
-      __stcs(ob + (size_t)(j / Q) * D4 + q,
-             make_float4(su.x + sv.x, su.y + sv.y, su.z + sv.z, su.w + sv.w));
+      __syncthreads();
+    }
+
+    const int2* eb = reinterpret_cast<const int2*>(edges) + (size_t)b * E;
+    const uint8_t* mb = mask + (size_t)b * E;
+    float4* ob = reinterpret_cast<float4*>(dh + (size_t)b * E * D + c0);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int total = E * Q;
+    for (int j0 = first + tid; j0 < total; j0 += stride) {
+      int u[kEdgeUnroll], v[kEdgeUnroll];
+#pragma unroll
+      for (int k = 0; k < kEdgeUnroll; ++k) {
+        const int j = j0 + k * kThreads;
+        u[k] = -1;
+        v[k] = -1;
+        if (j < total) {
+          const int2 uv = __ldg(eb + j / Q);
+          const bool keep = __ldg(mb + j / Q) != 0;
+          u[k] = (keep && uv.x >= 0 && uv.x < N) ? uv.x : -1;
+          v[k] = (keep && uv.y >= 0 && uv.y < N) ? uv.y : -1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kEdgeUnroll; ++k) {
+        const int j = j0 + k * kThreads;
+        if (j >= total) continue;
+        const int q = j % Q;
+        float4 su = zero, sv = zero;
+        if (kStaged) {
+          if (u[k] >= 0) su = rows[u[k] * Q + q];
+          if (v[k] >= 0) sv = rows[v[k] * Q + q];
+        } else {
+          if (u[k] >= 0) su = scale(__ldg(gb + (size_t)u[k] * D4 + q),
+                                    __ldg(cb + u[k]));
+          if (v[k] >= 0) sv = scale(__ldg(gb + (size_t)v[k] * D4 + q),
+                                    __ldg(cb + v[k]));
+        }
+        __stcs(ob + (size_t)(j / Q) * D4 + q, add(su, sv));
+      }
     }
   }
 }
@@ -171,26 +267,51 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Blocks an element of the gather path: about two blocks an SM in all,
+// at most one a chunk of kEdgeUnroll x kThreads pieces (`pieces` a row).
+int gather_slices(const Args& a, int pieces, int threads, int* slices) {
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long chunk = (long long)kEdgeUnroll * threads;
+  const long long chunks = ((long long)a.E * pieces + chunk - 1) / chunk;
+  long long s = (2LL * sms + a.B - 1) / a.B;
+  if (s > chunks) s = chunks;
+  *slices = s < 1 ? 1 : (int)s;
+  return 0;
+}
+
 template <int T, bool kStaged, int kThreads>
 int launch(const Args& a) {
+  int slices = 1;
   if (kStaged) {
     const cudaError_t err = cudaFuncSetAttribute(
         segment_mean_backward_kernel<T, kStaged, kThreads>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, a.shared_bytes);
     if (err != cudaSuccess) return (int)err;
+  } else {
+    const int pieces = a.D % 4 == 0 ? a.D / 4 : a.D;
+    const int rc = gather_slices(a, pieces, kThreads, &slices);
+    if (rc != 0) return rc;
   }
+  const long long blocks =
+      (long long)a.B * (kStaged ? a.D / (T ? T : 1) : slices);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   segment_mean_backward_kernel<T, kStaged, kThreads>
-      <<<a.B * (a.D / T), kThreads, a.shared_bytes, a.stream>>>(
+      <<<(unsigned)blocks, kThreads, a.shared_bytes, a.stream>>>(
           static_cast<const float*>(a.g),
           static_cast<const float*>(a.counts),
           static_cast<const int32_t*>(a.edges),
           static_cast<const uint8_t*>(a.mask), static_cast<float*>(a.dh),
-          a.E, a.N, a.D);
+          a.E, a.N, a.D, slices);
   return (int)cudaGetLastError();
 }
 
 // The launch for one block size: the gather path (no shared memory, tile
-// == D) or a staged tile.
+// == D; D's own instantiation or the runtime-width one) or a staged tile.
 template <int kThreads>
 int launch_plan(const Args& a) {
   if (a.shared_bytes == 0) {
@@ -200,7 +321,7 @@ int launch_plan(const Args& a) {
       case 16: return launch<16, false, kThreads>(a);
       case 32: return launch<32, false, kThreads>(a);
       case 64: return launch<64, false, kThreads>(a);
-      default: return (int)cudaErrorInvalidValue;
+      default: return launch<0, false, kThreads>(a);
     }
   }
   switch (a.tile) {
@@ -215,13 +336,12 @@ int launch_plan(const Args& a) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a successful launch. Supported widths are
-// D in {8, 16, 32, 64}. tile, shared_bytes and threads come from
-// backward_plan in segment_ops.py: shared_bytes == N * tile * 4 stages the
-// scaled rows (tile in {4, 8, 16, 32, 64}, dividing D), shared_bytes == 0
-// takes the gather path (tile == D); threads is 512 or 1024. The Python
-// wrapper checks shapes, types and alignment (16 bytes for g and dh, 8 for
-// edges) first.
+// Returns a cudaError_t: 0 on a successful launch. Any width D >= 1.
+// tile, shared_bytes and threads come from backward_plan in segment_ops.py:
+// shared_bytes == N * tile * 4 stages the scaled rows (tile in {4, 8, 16,
+// 32, 64}, dividing D), shared_bytes == 0 takes the gather path (tile ==
+// D); threads is 512 or 1024. The Python wrapper checks shapes, types and
+// alignment (16 bytes for g and dh where D % 4 == 0, 8 for edges) first.
 extern "C" int segment_mean_backward_f32(const void* g, const void* counts,
                                          const void* edges, const void* mask,
                                          void* dh, int B, int E, int N, int D,

@@ -8,11 +8,16 @@ function and the memory bound.
 commit unpacked with ``git archive``), so that two trees can be timed on one
 card, in turns, with the same inputs; the forward rows' SHA-256 digests of
 the mean and the counts then show whether the two trees give the same bits.
-One JSON line per (shape, batch, kernel), then the forward kernel at every
-width on the trainer's graph, the forward at each shape and batch with
-every launch plan that fits, the backward at every width, then the backward
-at each shape with every column tile that fits (``--measure_only``: the
-first lines alone).
+One JSON line per (shape, batch, kernel), then the same at the range
+shapes (``RANGE_SHAPES``: the widths and graphs past the shipped
+scenarios, the general plan among them), the general plan forced at the
+HLG and Huizhou trainer graphs beside the plan chosen there, the
+runtime-width instantiation beside the templated one at D 16 and 32, then
+the forward kernel at every templated width on the trainer's graph, the
+forward at each shape and batch with every launch plan that fits, the
+backward at every templated width, then the backward at each shape with
+every column tile that fits (``--measure_only``: the lines at SHAPES
+alone; ``--range_only``: the range shapes and the two comparisons).
 ``chip_smoke.py`` takes its shapes, inputs, bounds and library calls from
 here. Needs a CUDA device.
 """
@@ -56,8 +61,27 @@ SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
 # collects and updates at B and evaluates 64 envs
 BATCHES = {'rollout': (B, B // 4), 'trainer': (B, 64), 'host_obs': (B, 1),
            'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192, 64),
-           'grid_trainer': (B, 192), 'concept': (B, 64)}
+           'grid_trainer': (B, 192), 'concept': (B, 64),
+           'trainer_d24': (B, 64), 'trainer_d128': (B, 64),
+           'trainer_d6': (B, 64),
+           'trainer_e40k_d24': (B, 64, 8, 1), 'large_e100k': (8, 1),
+           'large_e100k_d24': (8, 1)}
 DP_RANK_UPDATE = ('dp_rank_update', 3000, 1344, 16)
+# the range of graphs and widths the port takes beyond the shipped
+# scenarios (each at its BATCHES): the HLG trainer's graph at the widths
+# 24 and 128 of gcn_node_dim (the runtime-width instantiation of the
+# shared-memory plans) and at 6 (its scalar loads, and the backward's
+# gather path with scalar loads), HLG's nodes with max_num_edges 40000 at width 24
+# (the general plan: keys past 16 bits; its update, collect, eval and a
+# single observation), and a community of 40,000 nodes and 100,000 edge
+# slots (the general plan: a CSR past one CTA; the backward's gather path,
+# at width 16 its own instantiation, at 24 the runtime-width one)
+RANGE_SHAPES = (('trainer_d24', 3000, 1344, 24),
+                ('trainer_d128', 3000, 1344, 128),
+                ('trainer_d6', 3000, 1344, 6),
+                ('trainer_e40k_d24', 40000, 1344, 24),
+                ('large_e100k', 100000, 40000, 16),
+                ('large_e100k_d24', 100000, 40000, 24))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 TOL = 1e-5   # kernel or library call vs plain version: f32 sums, other order
 
@@ -90,9 +114,19 @@ def cuda_time_ms(fn, reps=20):
 
 
 # the __global__ functions the wrappers launch, once a call each
-# (csrc/segment_mean.cu, csrc/segment_mean_backward.cu)
+# (csrc/segment_mean.cu, csrc/segment_mean_backward.cu), and the general
+# plan's seven (segment_mean_csr_*), each once a call
 FORWARD_KERNEL, BACKWARD_KERNEL = ('segment_mean_kernel',
                                    'segment_mean_backward_kernel')
+GENERAL_KERNELS, GENERAL_LAUNCHES = r'segment_mean_csr_\w+', 7
+
+
+def forward_kernels(plan) -> Tuple[str, int]:
+    """(name pattern, launches a call) of the forward's __global__
+    functions under `plan`."""
+    if getattr(plan, 'general', False):
+        return GENERAL_KERNELS, GENERAL_LAUNCHES
+    return FORWARD_KERNEL, 1
 
 
 # the head of a profiler trace: the trace drops the first K device
@@ -106,13 +140,15 @@ LEAD_MARKERS = 256
 
 def one_trace(fn, kernel, reps=20, lead=LEAD_MARKERS, settle_s=0.0):
     """One torch.profiler trace of reps calls of fn(), each of which
-    launches the CUDA kernel named `kernel` once: first a marker kernel
+    launches the CUDA kernels whose names match `kernel` (a name or a
+    pattern) a fixed number of times: first a marker kernel
     (an add on a one-element tensor), settle_s seconds of host pause,
     `lead` more markers, the calls, one marker more. Returns
     {'kernel_events': the events of `kernel` the trace holds,
-    'device_ms': their summed durations over reps, 'lead_markers': the
-    markers it holds before the first of them, 'trail_marker': whether
-    it holds the one after the last}."""
+    'device_ms': their summed durations over reps (a call's), 'by_kernel':
+    the same split by the function's name (the general plan's seven),
+    'lead_markers': the markers it holds before the first of them,
+    'trail_marker': whether it holds the one after the last}."""
     from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros(1, device='cuda')
     torch.cuda.synchronize()
@@ -131,9 +167,14 @@ def one_trace(fn, kernel, reps=20, lead=LEAD_MARKERS, settle_s=0.0):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = sorted(e.time_range.start for e in events if name.search(e.name))
     marks = [e.time_range.start for e in events if not name.search(e.name)]
+    by_kernel = {}
+    for e in events:
+        found = name.search(e.name)
+        if found:
+            by_kernel[found.group(0)] = by_kernel.get(found.group(0), 0.0) \
+                + e.time_range.elapsed_us() * 1e-3 / reps
     return {'kernel_events': len(ours),
-            'device_ms': sum(e.time_range.elapsed_us() for e in events
-                             if name.search(e.name)) * 1e-3 / reps,
+            'device_ms': sum(by_kernel.values()), 'by_kernel': by_kernel,
             'lead_markers': sum(t < ours[0] for t in marks) if ours else 0,
             'trail_marker': bool(ours) and any(t > ours[-1] for t in marks)}
 
@@ -165,26 +206,26 @@ def trace_check(segment_ops, rng, dev, traces=8,
     return rows
 
 
-def device_trace(fn, kernel, reps=20, attempts=5):
+def device_trace(fn, kernel, reps=20, attempts=5, per_call=1):
     """(device ms per call of fn(), readings): the summed durations of
-    the `kernel` launches of reps calls of fn() (one a call), from a
+    the `kernel` launches of reps calls of fn() (per_call a call), from a
     torch.profiler trace (no host time). A trace that holds fewer than
-    reps of them is taken again, up to `attempts` traces; readings holds
-    every trace's one_trace dict, and the time is None when none was
-    whole (never a partial sum)."""
+    reps x per_call of them is taken again, up to `attempts` traces;
+    readings holds every trace's one_trace dict, and the time is None when
+    none was whole (never a partial sum)."""
     fn()
     torch.cuda.synchronize()
     readings = []
     for _ in range(attempts):
         readings.append(one_trace(fn, kernel, reps))
-        if readings[-1]['kernel_events'] == reps:
+        if readings[-1]['kernel_events'] == reps * per_call:
             return readings[-1]['device_ms'], readings
     return None, readings
 
 
-def device_time_ms(fn, kernel, reps=20):
+def device_time_ms(fn, kernel, reps=20, per_call=1):
     """device_trace's time per call."""
-    return device_trace(fn, kernel, reps)[0]
+    return device_trace(fn, kernel, reps, per_call=per_call)[0]
 
 
 def _keep(edges, mask, num_nodes):
@@ -282,20 +323,20 @@ def plans_under(segment_ops, limits) -> dict:
     return out
 
 
-def measure(segment_ops, rng, dev, reps=20):
-    """Every kernel of segment_ops at every shape of SHAPES and at
-    DP_RANK_UPDATE (at each of its BATCHES) on random bipartite graphs:
-    error against the plain version, and the times of the kernel, the
-    plain version and the library call, with the bound and the share of it
-    the kernel's device time reaches; each forward row also carries the
-    plan and the SHA-256 of its mean and counts (equal across trees where
-    the bits are)."""
+def measure(segment_ops, rng, dev, reps=20, shapes=SHAPES + (DP_RANK_UPDATE,)):
+    """Every kernel of segment_ops at every shape of `shapes` (SHAPES and
+    DP_RANK_UPDATE; range_measure: RANGE_SHAPES), at each of its BATCHES,
+    on random bipartite graphs: error against the plain version, and the
+    times of the kernel, the plain version and the library call, with the
+    bound and the share of it the kernel's device time reaches; each
+    forward row also carries the plan and the SHA-256 of its mean and
+    counts (equal across trees where the bits are)."""
     # trees before the one forward kernel named the counts-returning
     # forward segment_mean_edge, and ran another kernel for segment_mean
     counts_fn = getattr(segment_ops, 'segment_mean_counts', None) or \
         segment_ops.segment_mean_edge
     rows = []
-    for shape, e, n, d, b in ((*s, b) for s in SHAPES + (DP_RANK_UPDATE,)
+    for shape, e, n, d, b in ((*s, b) for s in shapes
                               for b in BATCHES.get(s[0], (B,))):
         edges, mask = random_graph(rng, b, e, n)
         h = torch.where(mask[..., None], torch.as_tensor(
@@ -305,15 +346,17 @@ def measure(segment_ops, rng, dev, reps=20):
         ref, counts = segment_ops.segment_mean_counts_ref(h, edges, mask, n)
         lib_fwd, lib_out = library_forward(h, edges, mask, n)
         fwd_bound = bound_ms(forward_bytes(edges, mask, n, d))
+        plan = getattr(segment_ops, 'forward_plan', None)
+        fwd_kernel = forward_kernels(plan(b, n, e, d) if plan else None)
         with torch.no_grad():
             cases = {
                 'segment_mean': (
                     lambda: segment_ops.segment_mean(h, edges, mask, n),
-                    FORWARD_KERNEL, ref, fwd_bound, lib_fwd, lib_out,
+                    fwd_kernel, ref, fwd_bound, lib_fwd, lib_out,
                     lambda: segment_ops.segment_mean_ref(h, edges, mask, n)),
                 counts_fn.__name__: (
                     lambda: counts_fn(h, edges, mask, n)[0],
-                    FORWARD_KERNEL, ref, fwd_bound, lib_fwd, lib_out,
+                    fwd_kernel, ref, fwd_bound, lib_fwd, lib_out,
                     lambda: segment_ops.segment_mean_counts_ref(
                         h, edges, mask, n)),
             }
@@ -323,7 +366,8 @@ def measure(segment_ops, rng, dev, reps=20):
             cases['segment_mean_backward'] = (
                 lambda: segment_ops.segment_mean_backward(g, counts, edges,
                                                           mask),
-                BACKWARD_KERNEL, dref, bound_ms(backward_bytes(edges, mask, counts, d)),
+                (BACKWARD_KERNEL, 1), dref,
+                bound_ms(backward_bytes(edges, mask, counts, d)),
                 lib_bwd, lib_dh,
                 lambda: segment_ops.segment_mean_backward_ref(
                     g, counts, edges, mask))
@@ -339,7 +383,8 @@ def measure(segment_ops, rng, dev, reps=20):
                 if not (err <= TOL and lib_err <= TOL):
                     raise AssertionError(f'{shape} {name}: error {err}, '
                                          f'library {lib_err} > {TOL}')
-                device_ms = device_time_ms(fn, kernel, reps)
+                device_ms, readings = device_trace(fn, kernel[0], reps,
+                                                   per_call=kernel[1])
                 rows.append({
                     'shape': shape, 'B': b, 'E': e, 'N': n, 'D': d,
                     'kernel': name, 'max_abs_err': err,
@@ -351,7 +396,95 @@ def measure(segment_ops, rng, dev, reps=20):
                     'library_ms': cuda_time_ms(lib, reps),
                     'bound_ms': bnd,
                     'bound_share': bnd / device_ms if device_ms else None,
-                    **(forward if kernel == FORWARD_KERNEL else {})})
+                    'by_kernel': (readings[-1]['by_kernel'] if device_ms
+                                  and kernel[1] > 1 else None),
+                    **(forward if kernel[0] != BACKWARD_KERNEL else {})})
+    return rows
+
+
+def range_measure(segment_ops, rng, dev, reps=20):
+    """measure at RANGE_SHAPES (trees that take only the templated widths
+    and the graphs of one CTA have nothing to time there)."""
+    if getattr(segment_ops, 'general_plan', None) is None:
+        return []
+    return measure(segment_ops, rng, dev, reps, shapes=RANGE_SHAPES)
+
+
+def _timed_plan(segment_ops, fn, plan, reps):
+    """A plan's times: events, device, and the device time by kernel (of
+    the whole trace)."""
+    kernel, per_call = forward_kernels(plan)
+    device_ms, readings = device_trace(fn, kernel, reps, per_call=per_call)
+    return {'plan': plan._asdict(), 'ms': cuda_time_ms(fn, reps),
+            'device_ms': device_ms,
+            'by_kernel': readings[-1]['by_kernel'] if device_ms else None}
+
+
+def general_vs_chosen(segment_ops, rng, dev, reps=20,
+                      shapes=('trainer', 'huizhou_trainer')):
+    """The general plan forced at the HLG and the Huizhou trainer's graphs
+    (B 256) beside the plan forward_plan chooses there: their times, the
+    bound, and the SHA-256 of each plan's mean and counts, which must be
+    equal (both add each node's rows in edge order and divide once)."""
+    if getattr(segment_ops, 'general_plan', None) is None:
+        return []
+    rows = []
+    for shape, e, n, d in (s for s in SHAPES if s[0] in shapes):
+        edges, mask = random_graph(rng, B, e, n)
+        h = torch.as_tensor(rng.normal(size=(B, e, d)), dtype=torch.float32)
+        h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
+        bnd = bound_ms(forward_bytes(edges, mask, n, d))
+        row = {'shape': f'{shape}_general_vs_chosen', 'B': B, 'E': e,
+               'N': n, 'D': d, 'kernel': 'segment_mean', 'bound_ms': bnd}
+        for name, plan in (('chosen', segment_ops.forward_plan(B, n, e, d)),
+                           ('general', segment_ops.general_plan())):
+            def fn(plan=plan):
+                return segment_ops.segment_mean_counts(h, edges, mask, n,
+                                                       plan)
+            out, cnt = fn()
+            row[name] = {**_timed_plan(segment_ops, fn, plan, reps),
+                         'out_sha256': digest(out),
+                         'counts_sha256': digest(cnt)}
+            row[name]['bound_share'] = (bnd / row[name]['device_ms']
+                                        if row[name]['device_ms'] else None)
+        row['same_bits'] = all(row['chosen'][k] == row['general'][k]
+                               for k in ('out_sha256', 'counts_sha256'))
+        rows.append(row)
+    return rows
+
+
+def any_width_vs_templated(segment_ops, rng, dev, reps=20,
+                           widths=(16, 32), batches=(B, 64)):
+    """At the trainer's graph, for D 16 and 32 at B 256 and 64: the plan
+    forward_plan chooses with D's own instantiation against the same plan
+    with the runtime-width one (any_width), their times and whether they
+    give the same bits."""
+    if getattr(segment_ops, 'general_plan', None) is None:
+        return []
+    _, e, n, _ = SHAPES[1]
+    rows = []
+    for d in widths:
+        for b in batches:
+            edges, mask = random_graph(rng, b, e, n)
+            h = torch.as_tensor(rng.normal(size=(b, e, d)),
+                                dtype=torch.float32)
+            h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
+            chosen = segment_ops.forward_plan(b, n, e, d)
+            row = {'shape': 'trainer_any_width_vs_templated', 'B': b,
+                   'E': e, 'N': n, 'D': d, 'kernel': 'segment_mean',
+                   'bound_ms': bound_ms(forward_bytes(edges, mask, n, d))}
+            outs = []
+            for name, plan in (('templated', chosen),
+                               ('any_width', chosen._replace(
+                                   any_width=True))):
+                def fn(plan=plan):
+                    return segment_ops.segment_mean_counts(h, edges, mask,
+                                                           n, plan)
+                outs.append(fn())
+                row[name] = _timed_plan(segment_ops, fn, plan, reps)
+            row['same_bits'] = all(torch.equal(x, y)
+                                   for x, y in zip(*outs))
+            rows.append(row)
     return rows
 
 
@@ -415,7 +548,7 @@ def width_sweep(segment_ops, rng, dev, reps=20):
     edges, mask = random_graph(rng, B, e, n)
     edges, mask = edges.to(dev), mask.to(dev)
     rows = []
-    for d in segment_ops.SUPPORTED_DIMS:
+    for d in _templated_dims(segment_ops):
         h = torch.where(mask[..., None], torch.as_tensor(
             rng.normal(size=(B, e, d)), dtype=torch.float32,
             device=dev), 0.0)
@@ -441,7 +574,7 @@ def backward_width_sweep(segment_ops, rng, dev, reps=20):
     counts = _counts(segment_ops, edges, mask, n)
     plan = getattr(segment_ops, 'backward_plan', None)
     rows = []
-    for d in segment_ops.SUPPORTED_DIMS:
+    for d in _templated_dims(segment_ops):
         g = torch.as_tensor(rng.normal(size=(B, n, d)), dtype=torch.float32,
                             device=dev)
         def fn():
@@ -494,6 +627,13 @@ def backward_tile_sweep(segment_ops, rng, dev, reps=20):
     return rows
 
 
+def _templated_dims(segment_ops):
+    """The widths with their own instantiations (trees before any width
+    was taken named them SUPPORTED_DIMS)."""
+    return getattr(segment_ops, 'TEMPLATED_DIMS', None) or \
+        segment_ops.SUPPORTED_DIMS
+
+
 def _counts(segment_ops, edges, mask, num_nodes):
     """(B, N) counts of a graph, from the plain forward."""
     b, e = mask.shape
@@ -509,6 +649,9 @@ def main(argv=None):
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--measure_only', action='store_true',
                     help='only the rows at SHAPES x BATCHES, no sweeps')
+    ap.add_argument('--range_only', action='store_true',
+                    help='only the rows at RANGE_SHAPES and the general-plan '
+                    'and runtime-width comparisons')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_bench: no CUDA device')
@@ -518,14 +661,16 @@ def main(argv=None):
     from urban_tpu_torch.ops import segment_ops
     segment_ops.build_libraries()
     dev = torch.device('cuda', 0)
-    parts = [measure]
-    if not args.measure_only:
-        parts += [width_sweep, forward_plan_sweep, backward_width_sweep,
-                  backward_tile_sweep]
+    every = [measure, range_measure, general_vs_chosen,
+             any_width_vs_templated, width_sweep, forward_plan_sweep,
+             backward_width_sweep, backward_tile_sweep]
+    parts = (every[:1] if args.measure_only else every[1:4]
+             if args.range_only else every)
     # a generator a part, so that each part's inputs are the same in trees
-    # that skip another part
-    rows = [r for i, part in enumerate(parts) for r in part(
-        segment_ops, np.random.default_rng([args.seed, i]), dev)]
+    # and runs that skip another part
+    rows = [r for part in parts for r in part(
+        segment_ops, np.random.default_rng([args.seed, every.index(part)]),
+        dev)]
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader', '--id=0'],
                           capture_output=True, text=True).stdout.strip()

@@ -11,7 +11,10 @@ gradient.
   kernels (``segment_mean_pallas`` and ``segment_mean_onehot_pallas``),
   launched with the split of each batch element over CTAs, the block size
   and the shared memory that ``forward_plan`` chooses from the card's SM
-  count and shared-memory limits (``device_limits``).
+  count and shared-memory limits (``device_limits``); a graph whose CSR
+  does not fit one CTA's shared memory, or whose keys pass 16 bits, takes
+  the general plan, whose CSR lives in device memory
+  (``forward_scratch_words`` of scratch, allocated here).
 * ``SegmentMean`` is the autograd function: its forward is
   ``segment_mean_counts``, its backward ``segment_mean_backward``
   (``csrc/segment_mean_backward.cu``, no TPU counterpart), launched with
@@ -30,7 +33,9 @@ or graph (E = 0) gives zeros of the right shape without a launch.
 Semantics shared by all: masked edges add to neither the sum nor the count
 (and get a zero gradient row), an unmasked self-loop counts twice, endpoint
 indices outside ``[0, num_nodes)`` are dropped, and the divisor is
-``count + 1e-6``.
+``count + 1e-6``. Any graph and any width D >= 1, as the JAX package's
+aggregation: widths in ``TEMPLATED_DIMS`` have their own instantiations in
+the kernels, any other width a runtime-width one.
 
 Each kernel library is compiled with nvcc on first use, from the sources in
 this package only, into ``urban_tpu_torch/build/``.
@@ -50,7 +55,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 EPSILON = 1e-6
-SUPPORTED_DIMS = (8, 16, 32, 64)
+# the widths with their own instantiations in both kernels; every other
+# width D >= 1 runs a runtime-width one
+TEMPLATED_DIMS = (8, 16, 32, 64)
 
 
 class DeviceLimits(NamedTuple):
@@ -90,12 +97,14 @@ BUILD_DIR = os.path.join(_PKG_DIR, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # kernel -> (source in csrc/, {exported C function: argtypes})
 KERNELS = {
     'segment_mean': ('segment_mean.cu', {
         'segment_mean_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
+                             _I, _I, _I, _P],
+        'segment_mean_general_f32': [_P, _P, _P, _P, _P, _P, _L, _I, _I,
+                                     _I, _I, _P],
         'segment_mean_resident': [_I, _I, _I, _I]}),
     'segment_mean_backward': ('segment_mean_backward.cu', {
         'segment_mean_backward_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -196,9 +205,16 @@ def _check_features(name, t, shape_doc):
         raise ValueError(f'{name} must be {shape_doc}, got {tuple(t.shape)}')
     if t.dtype != torch.float32:
         raise TypeError(f'{name} must be float32, got {t.dtype}')
-    if t.shape[-1] not in SUPPORTED_DIMS:
-        raise ValueError(f'feature width {t.shape[-1]} not in '
-                         f'{SUPPORTED_DIMS}')
+    if t.shape[-1] < 1:
+        raise ValueError(f'feature width must be at least 1, got '
+                         f'{t.shape[-1]}')
+
+
+def _vector_width(width: int) -> bool:
+    """Whether the kernels read and write rows of this width as float4
+    (every D % 4 == 0), which needs 16-byte aligned rows; other widths take
+    scalar loads."""
+    return width % 4 == 0
 
 
 def _check_graph(edges, edge_mask, B, E, num_nodes, like):
@@ -234,32 +250,65 @@ class ForwardPlan(NamedTuple):
     `threads` threads, each with `shared_bytes` of shared memory; where
     `staged`, one CTA an element first copies the element's rows of h into
     shared memory (one bulk copy, while it builds its CSR) and gathers from
-    there, else the gather reads the rows from global memory."""
+    there, else the gather reads the rows from global memory. The kernel
+    runs D's own instantiation where D is in TEMPLATED_DIMS and the
+    runtime-width one else; `any_width` runs the runtime-width one at every
+    D (an override: kernel_bench times the two).
+
+    `general`: the general plan instead (segment_mean_general_f32), for a
+    graph the shared-memory plans do not take: the CSR in device memory
+    (forward_scratch_words of scratch), seven launches; `threads` and
+    `shared_bytes` say what the kernel file's own constants are (the
+    gather's block size, the hub sort's buffer), for reports."""
     split: int
     threads: int
     staged: bool
     shared_bytes: int
+    general: bool = False
+    any_width: bool = False
 
 
 FORWARD_SPLITS = (1, 2, 4, 8)
 FORWARD_THREADS = (512, 1024)
 FORWARD_STATIC_BYTES = 16   # the kernel's static shared memory (an mbarrier)
+# the general plan's constants (csrc/segment_mean.cu kGeneralThreads,
+# kHubBytes): the gather's block size and the hub sort's shared memory
+# (8192 keys), for forward_shared_bytes and reports
+GENERAL_THREADS, GENERAL_SHARED_BYTES = 256, 8192 * 4
 
 
 def forward_shared_bytes(num_nodes: int, num_edges: int, width: int,
-                         split: int, threads: int, staged: bool) -> int:
+                         split: int, threads: int, staged: bool,
+                         general: bool = False) -> int:
     """Dynamic shared memory of one CTA of the forward kernel (shared_bytes
     in csrc/segment_mean.cu): where staged, E rows of D floats; then a word
     a warp and a word a node of its range, 16-bit bucket starts, 2 E keys
-    and E local endpoints of each kind."""
+    and E local endpoints of each kind. The general plan's CTAs hold no
+    CSR: its hub sort's buffer, whatever the graph."""
+    if general:
+        return GENERAL_SHARED_BYTES
     m = -(-int(num_nodes) // split)
     size = (int(num_edges) * width * 4 if staged else 0) + \
         4 * (threads // 32 + m) + 2 * (m + 1 + 4 * int(num_edges))
     return -(-size // 16) * 16
 
 
+def forward_scratch_words(batch: int, num_nodes: int, num_edges: int) -> int:
+    """int32 words of device memory the general plan's CSR takes
+    (scratch_words in csrc/segment_mean.cu): each node's entry counter, each
+    element's N + 1 bucket starts and its 2 E bucket keys."""
+    b, n, e = int(batch), int(num_nodes), int(num_edges)
+    return b * n + b * (n + 1) + 2 * b * e
+
+
 def _fits(size: int, limits: DeviceLimits) -> bool:
     return size + FORWARD_STATIC_BYTES <= limits.shared_bytes_per_block
+
+
+def general_plan() -> ForwardPlan:
+    """The general plan: the CSR in device memory, for any graph."""
+    return ForwardPlan(1, GENERAL_THREADS, False, GENERAL_SHARED_BYTES,
+                       general=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,34 +316,36 @@ def forward_plan(batch: int, num_nodes: int, num_edges: int, width: int,
                  limits: DeviceLimits = H100_SXM) -> ForwardPlan:
     """The forward kernel's launch plan for B batch elements of N nodes, E
     edges and D columns on a card of `limits` (the wrapper passes its
-    tensor's device_limits). A graph is taken where one CTA of 1024
-    threads holds its CSR (at least every graph the kernel before this
-    plan took) and its keys 2 e + 1 fit 16 bits; anything else raises
-    ValueError. Where the batch fills the card (B > its SMs) and the
-    element's rows of h fit beside its CSR, each element is staged in one
-    CTA of 1024 threads, so that h is read once, in order, while the CSR
-    is built. Else the gather reads h from global memory: with 1024
-    threads and the largest split of 8, 4, 2 or 1 CTAs an element that
-    keeps the batch in one wave of a CTA an SM, or, past the SMs, with two
-    CTAs of 512 threads an element, two an SM (faster at B 256 than one
-    CTA an element in one wave: kernel_bench's plan sweep times every
-    plan)."""
-    n, e, b = int(num_nodes), int(num_edges), int(batch)
-    if width not in SUPPORTED_DIMS:
-        raise ValueError(f'feature width {width} not in {SUPPORTED_DIMS}')
-    if (n <= 0 or e < 0 or 2 * e + 1 > 0xFFFF or not _fits(
-            forward_shared_bytes(n, e, width, 1, 1024, False), limits)):
-        raise ValueError(f'segment_mean: a graph of {n} nodes and {e} edges '
-                         f'does not fit in one CTA\'s shared memory')
-    staged = forward_shared_bytes(n, e, width, 1, 1024, True)
-    if b > limits.num_sms and _fits(staged, limits):
+    tensor's device_limits). The shared-memory plans take a graph where one
+    CTA of 1024 threads holds its CSR (at least every graph the kernel
+    before these plans took) and its keys 2 e + 1 fit 16 bits; every other
+    graph takes the general plan (general_plan). Where the batch fills the
+    card (B > its SMs) and the element's rows of h fit beside its CSR (and
+    D % 4 == 0, for the bulk copy), each element is staged in one CTA of
+    1024 threads, so that h is read once, in order, while the CSR is built.
+    Else the gather reads h from global memory: with 1024 threads and the
+    largest split of 8, 4, 2 or 1 CTAs an element that keeps the batch in
+    one wave of a CTA an SM, or, past the SMs, with two CTAs of 512 threads
+    an element, two an SM (faster at B 256 than one CTA an element in one
+    wave: kernel_bench's plan sweep times every plan). Any width: the
+    kernel picks its instantiation by D. Raises ValueError only for
+    invalid inputs: N < 1, E < 0 or D < 1."""
+    n, e, b, d = int(num_nodes), int(num_edges), int(batch), int(width)
+    if n <= 0 or e < 0 or d <= 0:
+        raise ValueError(f'segment_mean: no plan for {n} nodes, {e} edges '
+                         f'and width {d}')
+    if 2 * e + 1 > 0xFFFF or not _fits(
+            forward_shared_bytes(n, e, d, 1, 1024, False), limits):
+        return general_plan()
+    staged = forward_shared_bytes(n, e, d, 1, 1024, True)
+    if b > limits.num_sms and _vector_width(d) and _fits(staged, limits):
         return ForwardPlan(1, 1024, True, staged)
     for split in FORWARD_SPLITS[::-1]:   # each fits where split 1 does
         if b * split <= limits.num_sms:
             return ForwardPlan(split, 1024, False, forward_shared_bytes(
-                n, e, width, split, 1024, False))
+                n, e, d, split, 1024, False))
     return ForwardPlan(2, 512, False,
-                       forward_shared_bytes(n, e, width, 2, 512, False))
+                       forward_shared_bytes(n, e, d, 2, 512, False))
 
 
 class BackwardPlan(NamedTuple):
@@ -315,8 +366,10 @@ def backward_plan(num_nodes: int, width: int,
     dividing D. First choice: the widest tile of at least 8 columns (whole
     32-byte sectors of a dh row per block) with which two blocks of 512
     threads share an SM; else the widest tile one block of 1024 threads can
-    hold; else, where not even 4 columns of N rows fit, the gather path,
-    also with 1024 threads (kernel_bench's tile sweep times the others)."""
+    hold; else, where not even 4 columns of N rows fit or D has no such
+    divisor (D % 4 != 0), the gather path, also with 1024 threads (its own
+    instantiation for D in TEMPLATED_DIMS, else the runtime-width one;
+    kernel_bench's tile sweep times the others)."""
     n = int(num_nodes)
     tiles = [t for t in (64, 32, 16, 8, 4) if t <= width and width % t == 0]
     two_per_sm = limits.shared_bytes_per_sm // 2 - limits.reserved_bytes
@@ -388,9 +441,9 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment mean (B, N, D) and per-node counts (B, N), without a
     gradient. CUDA tensors run csrc/segment_mean.cu with `plan` (default:
-    forward_plan's for the tensor's card, which raises ValueError for a
-    graph the kernel does not take; kernel_bench times the others), CPU
-    tensors the plain version."""
+    forward_plan's for the tensor's card; kernel_bench times the others),
+    the general plan with its scratch allocated here on the tensor's
+    device; CPU tensors the plain version."""
     _check(h_edges, edges, edge_mask, num_nodes)
     dev = _device(h_edges)
     N = int(num_nodes)
@@ -400,16 +453,24 @@ def segment_mean_counts(h_edges: torch.Tensor, edges: torch.Tensor,
     if dev.type == 'cpu':
         with torch.no_grad():
             return segment_mean_counts_ref(h_edges, edges, edge_mask, N)
-    if h_edges.data_ptr() % 16 or edges.data_ptr() % 8:
-        raise ValueError('segment_mean: h_edges must be 16-byte and edges '
-                         '8-byte aligned')
+    if (_vector_width(D) and h_edges.data_ptr() % 16) or edges.data_ptr() % 8:
+        raise ValueError('segment_mean: h_edges must be 16-byte (D % 4 == 0) '
+                         'and edges 8-byte aligned')
     plan = plan or forward_plan(B, N, E, D, device_limits(dev))
     with torch.cuda.device(dev):
         out = torch.empty((B, N, D), dtype=torch.float32, device=dev)
         counts = torch.empty((B, N), dtype=torch.float32, device=dev)
-        _launch('segment_mean', 'segment_mean_f32', h_edges.data_ptr(),
-                edges.data_ptr(), edge_mask.data_ptr(), out.data_ptr(),
-                counts.data_ptr(), B, E, N, D, *plan, _stream(dev))
+        pointers = (h_edges.data_ptr(), edges.data_ptr(),
+                    edge_mask.data_ptr(), out.data_ptr(), counts.data_ptr())
+        if plan.general:
+            words = forward_scratch_words(B, N, E)
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+            _launch('segment_mean', 'segment_mean_general_f32', *pointers,
+                    scratch.data_ptr(), words, B, E, N, D, _stream(dev))
+        else:
+            _launch('segment_mean', 'segment_mean_f32', *pointers, B, E, N,
+                    D, plan.split, plan.threads, int(plan.staged),
+                    int(plan.any_width), plan.shared_bytes, _stream(dev))
     return out, counts
 
 
@@ -420,7 +481,8 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
     SegmentMean. CUDA tensors run csrc/segment_mean_backward.cu with
     `plan` (default: backward_plan's for the tensor's card; kernel_bench
     times the others), CPU tensors the plain version. Both take the same
-    inputs: grad_out must be 16-byte and edges 8-byte aligned."""
+    inputs: grad_out must be 16-byte aligned where D % 4 == 0 (float4
+    rows), and edges 8-byte aligned."""
     _check_features('grad_out', grad_out, '(B, N, D)')
     B, N, D = grad_out.shape
     E = edge_mask.shape[-1]
@@ -435,14 +497,15 @@ def segment_mean_backward(grad_out: torch.Tensor, counts: torch.Tensor,
         raise ValueError('grad_out and counts must be contiguous')
     if B == 0 or E == 0:
         return grad_out.new_zeros((B, E, D))
-    if grad_out.data_ptr() % 16 or edges.data_ptr() % 8:
+    vector = _vector_width(D)
+    if (vector and grad_out.data_ptr() % 16) or edges.data_ptr() % 8:
         raise ValueError('segment_mean_backward: grad_out must be 16-byte '
-                         'and edges 8-byte aligned')
+                         '(D % 4 == 0) and edges 8-byte aligned')
     dev = _device(grad_out)
     if dev.type == 'cpu':
         return segment_mean_backward_ref(grad_out, counts, edges, edge_mask)
     dh = torch.empty((B, E, D), dtype=torch.float32, device=dev)
-    if dh.data_ptr() % 16:
+    if vector and dh.data_ptr() % 16:
         raise ValueError('segment_mean_backward: dh is not 16-byte aligned')
     plan = plan or backward_plan(N, D, device_limits(dev))
     with torch.cuda.device(dev):
@@ -479,7 +542,7 @@ def segment_mean(h_edges: torch.Tensor, edges: torch.Tensor,
     """Scatter-mean edge embeddings to their endpoint nodes.
 
     h_edges (B, E, D) float32, edges (B, E, 2) int32, edge_mask (B, E) bool,
-    all contiguous on one device; D in SUPPORTED_DIMS. Returns (B, N, D)
+    all contiguous on one device; any E >= 0, N >= 1, D >= 1. Returns (B, N, D)
     float32, with a grad_fn where h_edges requires a gradient (SegmentMean).
     Without one, CUDA tensors run the forward kernel and CPU tensors the
     plain version."""

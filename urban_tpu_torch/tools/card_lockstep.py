@@ -51,8 +51,16 @@ and the launch plans of the batches that ran.
         --iterations 1 --concurrent --out lockstep_136.json
     python -m urban_tpu_torch.tools.card_lockstep --cfg hlg_concept \\
         --concurrent
+    python -m urban_tpu_torch.tools.card_lockstep --gcn_node_dim 24 \\
+        --max_num_edges 40000 --concurrent
     python -m urban_tpu_torch.tools.card_lockstep --device cpu \\
         --num_envs 2 --iterations 1
+
+``--gcn_node_dim`` and ``--max_num_edges`` override the scenario's
+``state_encoder_specs`` (the SGNN's width and the edge slots, the
+trainer's E), on both sides, as JAX's trainer takes the same overridden
+config: at width 24 and 40,000 edge slots HLG's graph takes the forward
+kernel's general plan and its runtime-width paths.
 
 Without a card, ``--device cpu`` runs both sides on the CPU, which must
 agree bit for bit.
@@ -61,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import multiprocessing
 import os
@@ -91,12 +100,17 @@ ITERATION_FLOATS = ('mean_episode_reward', 'success_frac', 'eval_reward',
                     'best_reward')
 
 
-def recipe_config(root_dir: str, cfg_id: str = 'hlg') -> Config:
+def recipe_config(root_dir: str, cfg_id: str = 'hlg',
+                  encoder_specs: Optional[dict] = None) -> Config:
     """The scenario's config at SEED under the learning-parity recipe's
-    flags."""
+    flags, its state_encoder_specs updated with `encoder_specs` (e.g.
+    gcn_node_dim, max_num_edges)."""
     cfg = Config(cfg_id, SEED, tmp=False, root_dir=root_dir)
     cfg.agent_specs = dict(cfg.agent_specs, normalize_advantages=True)
     cfg.tau = 0.95
+    if encoder_specs:
+        cfg.state_encoder_specs = dict(cfg.state_encoder_specs,
+                                       **encoder_specs)
     return cfg
 
 
@@ -241,9 +255,10 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
              num_envs: int = NUM_ENVS,
              rollout_len: int = ROLLOUT_LEN, eval_envs: int = EVAL_ENVS,
              iterations: int = ITERATIONS,
-             threads: Optional[int] = None) -> dict:
-    """One side of the lockstep: an eager trainer on scenario `cfg` on
-    `device` through
+             threads: Optional[int] = None,
+             encoder_specs: Optional[dict] = None) -> dict:
+    """One side of the lockstep: an eager trainer on scenario `cfg` (its
+    state_encoder_specs updated with `encoder_specs`) on `device` through
     `iterations` train iterations and one more collect on the served
     noise. Returns its record (numpy and plain values only): the initial
     parameters, each collect's trajectory and decision gaps, and each
@@ -255,10 +270,18 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
         from urban_tpu_torch.bench import set_precision_flags
         set_precision_flags()
     with tempfile.TemporaryDirectory() as root_dir:
-        trainer = Trainer(recipe_config(root_dir, cfg), num_envs=num_envs,
+        trainer = Trainer(recipe_config(root_dir, cfg, encoder_specs),
+                          num_envs=num_envs,
                           rollout_len=rollout_len, eval_envs=eval_envs,
                           device=dev, encoder=encoder, eager=True)
-        return _run(trainer, iterations)
+        record = _run(trainer, iterations)
+    if dev.type == 'cuda':
+        # the card side's cached memory goes back to the card before the
+        # reference side, minutes longer on the CPU, is waited for
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return record
 
 
 def _run(trainer: Trainer, iterations: int) -> dict:
@@ -271,6 +294,8 @@ def _run(trainer: Trainer, iterations: int) -> dict:
                         'rollout_len': T,
                         'eval_envs': trainer.eval_envs, 'nodes': N,
                         'edges': E, 'iterations': iterations},
+              'widths': {'gcn_node_dim': trainer.cfg.state_encoder_specs[
+                  'gcn_node_dim']},
               'init_params': _numpy_params(trainer.model),
               'plans': launch_plans(trainer),
               'collects': [], 'iterations': []}
@@ -336,9 +361,10 @@ def compare(card: dict, ref: dict) -> dict:
     checks in 'failures', and for each collect and iteration what was
     compared."""
     failures = []
-    if card['sizes'] != ref['sizes'] or card['encoder'] != ref['encoder']:
+    if (card['sizes'] != ref['sizes'] or card['encoder'] != ref['encoder']
+            or card['widths'] != ref['widths']):
         raise ValueError(f'records of other runs: {card["sizes"]} '
-                         f'{ref["sizes"]}')
+                         f'{card["widths"]} {ref["sizes"]} {ref["widths"]}')
     same_init = all(np.array_equal(card['init_params'][k], v)
                     for k, v in ref['init_params'].items())
     if not same_init:
@@ -410,7 +436,7 @@ def compare(card: dict, ref: dict) -> dict:
             'iterations': iterations,
             'last_collect_launches': card['last_collect_launches'],
             'plans': card['plans'], 'sizes': card['sizes'],
-            'encoder': card['encoder'],
+            'widths': card['widths'], 'encoder': card['encoder'],
             'devices': [card['device'], ref['device']],
             'seconds': {'device': card['seconds'],
                         'reference': ref['seconds']}}
@@ -453,12 +479,20 @@ def main(argv=None) -> dict:
     ap.add_argument('--ref_threads', type=int, default=0,
                     help='Intra-op threads of the CPU side (0: the '
                     'default).')
+    ap.add_argument('--gcn_node_dim', type=int, default=0,
+                    help='The SGNN\'s width (0: the config\'s).')
+    ap.add_argument('--max_num_edges', type=int, default=0,
+                    help='The edge slots, the trainer\'s E (0: the '
+                    'config\'s).')
     ap.add_argument('--out', default='', help='Write the report (JSON).')
     a = ap.parse_args(argv)
     t0 = time.perf_counter()
+    specs = {k: v for k, v in (('gcn_node_dim', a.gcn_node_dim),
+                               ('max_num_edges', a.max_num_edges)) if v}
     report = run(a.device, concurrent=a.concurrent,
                  ref_threads=a.ref_threads or None, encoder=a.encoder,
-                 cfg=a.cfg, num_envs=a.num_envs, iterations=a.iterations)
+                 cfg=a.cfg, num_envs=a.num_envs, iterations=a.iterations,
+                 encoder_specs=specs or None)
     report['wall_seconds'] = time.perf_counter() - t0
     for i, it in enumerate(report['iterations']):
         print(json.dumps({'iteration': i, **it}), flush=True)
@@ -467,7 +501,7 @@ def main(argv=None) -> dict:
         with open(a.out, 'w') as f:
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
-        'ok', 'failures', 'encoder', 'sizes', 'devices', 'plans',
+        'ok', 'failures', 'encoder', 'sizes', 'widths', 'devices', 'plans',
         'last_collect_launches', 'seconds', 'wall_seconds')}), flush=True)
     if not report['ok']:
         raise SystemExit(1)
