@@ -9,7 +9,8 @@ and checks each kernel against its plain PyTorch version at
 the shapes of the main paths: the forward segment mean, which every path
 runs, and its backward, which the PPO update runs, each at the HLG
 rollout's, the HLG trainer's, a large graph's, the grid trainer's, the
-concept scenarios' and the Huizhou trainer's size, timed beside one
+concept scenarios', the Huizhou trainer's and both two-phase graphs'
+size, timed beside one
 PyTorch library call and its memory bound
 (urban_tpu_torch/kernel_bench.py). The backward must give the
 plain version's bits, on the card and on the CPU. Then both kernels at
@@ -93,12 +94,18 @@ tools/card_lockstep.py: the phase trainer_card_vs_cpu, with each
 parameter group's largest deviation an iteration and exact launches; the
 same lockstep at gcn_node_dim 24 and 40,000 edge slots, the general plan
 in its collect, update and eval, started after the range kernels: the
-phase trainer_card_vs_cpu_wide; and the two trainers graph against eager
+phase trainer_card_vs_cpu_wide; the two trainers graph against eager
 at that config, bit for bit, started after the HLG rollout:
-train_graph_vs_eager_wide),
-runs in child processes, each on a core of its own, beside the graft
-entry points; the divergence replay's CPU side starts after the HLG
-rollout.
+train_graph_vs_eager_wide; the same lockstep in grid's road phase, both
+sides frozen on one plan with one warm start, 8 envs x 60 steps, started
+after the HLG rollout and printed in trainer_card_vs_cpu; and grid's
+two-phase recipe through tools/parity_run.py --separate_train, 16 envs x
+60 steps, one iteration a phase, cut by its deadline at phase 2's first
+iteration and resumed across the freeze, exact launches in each part of
+each phase, then the export of phase 2's best plan with its host road
+term beside the jit road reward: the phase two_phase_train_export),
+runs in child processes, beside the graft entry points; the divergence
+replay's CPU side starts after the HLG rollout.
 
     python3 chip_smoke.py --tail sequential|concurrent
 
@@ -154,6 +161,12 @@ ROAD_BATCH, ROAD_CPU_ENVS, CONCEPT_BATCH, ROAD_LOCKSTEP_ENVS = 32, 32, 256, 8
 # few, and one greedy eval env is enough (every greedy episode from the
 # initial state is the same)
 TWO_PHASE_SEED, TWO_PHASE_ENVS, TWO_PHASE_EVAL_ENVS, TWO_PHASE_LEN = 0, 8, 1, 60
+# the two-phase recipe under the parity CLI, cut from 192 envs to TP_ENVS
+# (the phase's 60-step window kept: 3 minibatches of 256 rows an epoch) and
+# from 64 greedy eval envs to TP_EVAL_ENVS, one iteration a phase; the
+# exported plan's host road term against the jit road reward of the same
+# plan (JAX's record: equal to 4 decimals)
+TP_ENVS, TP_EVAL_ENVS, TOL_EXPORT_ROAD = 16, 4, 1e-3
 # the host agent's train -> eval: the README's seed; the reference samples
 # 500 episodes an iteration, cut to 8 (and to one iteration a phase)
 HOST_SEED, HOST_EPISODES = 111, 8
@@ -1129,8 +1142,133 @@ def mlp_train_hlg(dev):
     return out
 
 
+def two_phase_train_export(dev):
+    """The path of grid's two-phase run: the parity recipe's CLI
+    (tools/parity_run.py --cfg grid --separate_train) at TP_ENVS envs x
+    the phase's 60 steps, 4 epochs of minibatch 256, TP_EVAL_ENVS greedy
+    eval envs, seed 111, one iteration a phase, in two chunks: the
+    first's --deadline cuts it at phase 2's first iteration, after the
+    freeze (final.pt in phase 2 with iteration 0 and the warm-started
+    parameters); the second resumes it there and runs phase 2's iteration
+    1. Each part of each iteration must launch exactly rollout_len x
+    layers forward kernels in collect and eval and minibatch steps x
+    layers of each kernel in the update, and nothing else over the two
+    chunks; the resume must start on final.pt's parameters, and every
+    phase-2 parameter but the land-use head's must move; each stats line
+    names its phase, and the road phase's times its road reward. Then
+    tools/export_best_plan on phase 2's best.pt: the frozen land use with
+    the roads of the best greedy road episode, host-scored with every
+    weight, and the host's road term within TOL_EXPORT_ROAD of the jit
+    road R_eval. Runs in a TAIL child."""
+    from urban_tpu_torch.ops import segment_ops
+    from urban_tpu_torch.rl import trainer as trainer_mod
+    from urban_tpu_torch.tools import export_best_plan, parity_run
+    with tempfile.TemporaryDirectory() as root:
+        stats = os.path.join(root, 'stats.jsonl')
+        flags = ['--root_dir', root, '--stats', stats, '--cfg', 'grid',
+                 '--separate_train', '--num_envs', str(TP_ENVS),
+                 '--eval_envs', str(TP_EVAL_ENVS), '--rollout_len',
+                 str(TWO_PHASE_LEN), '--device', str(dev)]
+        models = os.path.join(root, 'grid', '111', 'models')
+        entries = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        segment_ops.reset_launches()
+        t0 = time.time()
+        with entry_states(entries):
+            first = parity_run.main(['--iterations', '1', '--deadline',
+                                     '1e-3', *flags])
+            cut = trainer_mod.read_checkpoint(os.path.join(models,
+                                                           'final.pt'))
+            second = parity_run.main(['--iterations', '1', '--resume',
+                                      os.path.join(models, 'final.pt'),
+                                      *flags])
+        torch.cuda.synchronize(dev)
+        counted = dict(segment_ops.launches)
+        seconds = time.time() - t0
+        with open(stats) as f:
+            lines = [json.loads(line) for line in f]
+        its = [x for x in lines if 'summary' not in x]
+        if (first['iterations'], first['phase'], second['iterations'],
+                second['phase']) != ([0], 2, [1], 2) or not (
+                first['stopped_at_deadline'] and cut['phase'] == 2
+                and cut['iteration'] == 0):
+            raise AssertionError(f'chunks {first["iterations"]} / '
+                                 f'{second["iterations"]}, phases '
+                                 f'{first["phase"]} / {second["phase"]}, '
+                                 f'cut at {cut["phase"]}, '
+                                 f'{cut["iteration"]}')
+        warm = second['warm_start']
+        if warm != first['warm_start'] or not warm or warm[0] != warm[1]:
+            raise AssertionError(f'warm starts {first["warm_start"]} / '
+                                 f'{warm}')
+        if [x['phase'] for x in its] != [1, 2] or 'road_reward_s' in its[
+                0] or its[1]['road_reward_calls']['collect'] < 1:
+            raise AssertionError(f'stats lines {its}')
+        (entry,) = entries[1:]
+        if entry['iteration'] != 1 or entry['adam'] or any(
+                not torch.equal(v, cut['params'][k])
+                for k, v in entry['params'].items()):
+            raise AssertionError('the resume did not start on final.pt')
+        phase2 = trainer_mod.read_checkpoint(os.path.join(
+            models, 'phase2_final.pt'))
+        # the road phase plans no land use: the land-use head's gradient is
+        # exactly zero, and Adam leaves it as it was
+        unchanged = sorted(k for k, v in phase2['params'].items()
+                           if torch.equal(v, entry['params'][k]))
+        if any(not k.startswith('land_use_head.') for k in unchanged):
+            raise AssertionError(f'phase-2 parameters the update left as '
+                                 f'they were: {unchanged}')
+        with tempfile.TemporaryDirectory() as cfg_root:
+            cfg = trainer_mod.Config('grid', 111, root_dir=cfg_root)
+        layers = cfg.state_encoder_specs['num_gcn_layers']
+        mb_layers = cfg.num_optim_epoch * (
+            TP_ENVS * TWO_PHASE_LEN // cfg.mini_batch_size) * layers
+        forward = {'segment_mean': TWO_PHASE_LEN * layers,
+                   'segment_mean_backward': 0}
+        expect = {'collect': forward, 'update': {
+            'segment_mean': mb_layers, 'segment_mean_backward': mb_layers},
+            'eval': forward}
+        total = {k: 2 * sum(p[k] for p in expect.values()) for k in counted}
+        got = [x['kernel_launches'] for x in its]
+        if got != [expect] * 2 or counted != total:
+            raise AssertionError(f'two-phase launches {got} / {counted} != '
+                                 f'{expect} / {total}')
+
+        t1 = time.time()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = export_best_plan.main([
+                '--cfg', 'grid', '--ckpt', os.path.join(models, 'best.pt'),
+                '--out', os.path.join(root, 'best.geojson')])
+        out = printed.getvalue().splitlines()
+        if rc != 0 or not out[-1].startswith('road: '):
+            raise AssertionError(f'export: rc {rc}, {out}')
+        host = float(out[1].split(': ')[1])
+        road_host, road_jit = (float(x) for x in out[-1][len('road: '):-1]
+                               .split(' (jit '))
+        if not (np.isfinite(host) and abs(road_host - road_jit)
+                <= TOL_EXPORT_ROAD):
+            raise AssertionError(f'export: host {host}, road {road_host} '
+                                 f'against jit {road_jit}')
+        export = {'rc': rc, 'printed': out[0], 'host_reward': host,
+                  'host_road': road_host, 'jit_road': road_jit,
+                  'seconds': time.time() - t1}
+    return {'effective': second['effective'], 'seconds': seconds,
+            'chunks': [{k: c[k] for k in (
+                'iterations', 'phase', 'phase1', 'warm_start',
+                'stopped_at_deadline', 'best_reward', 'best_iteration',
+                'wall_s', 'peak_allocated_bytes')} for c in (first, second)],
+            'iterations': [{k: x[k] for k in (
+                'iteration', 'phase', 'sample_time', 'update_time',
+                'eval_time', 'episodes', 'failures', 'mean_episode_reward',
+                'eval_reward', 'peak_allocated_bytes')} | {
+                'road_reward_s': x.get('road_reward_s')} for x in its],
+            'iteration_kernel_launches': got, 'kernel_launches': counted,
+            'unchanged_parameters': unchanged, 'export': export}
+
+
 def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
-                        ref_threads=None):
+                        ref_threads=None, phase=1, rollout_len=TRAIN_LEN):
     """tools/card_lockstep.py: the trainer on scenario `cfg_id` with the
     state encoder `encoder` on the card (eager=True) against the same
     trainer on the
@@ -1147,7 +1285,9 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
     HLG, the SGNN on hlg_concept: E 4000, the forward's split plan at B 8
     and 2 and its unstaged plan at the update's B 256, the backward's
     tile-16 plan, the concept term in the rewards compared; the SGNN on
-    HLG with its state_encoder_specs updated with `encoder_specs`). The
+    HLG with its state_encoder_specs updated with `encoder_specs`; the
+    SGNN in grid's road phase, `phase` 2, both sides frozen on one plan
+    with one warm start, at the phase's `rollout_len` of 60 steps). The
     CPU side runs on `ref_threads` intra-op threads (CHILD_THREADS where
     not given)."""
     from urban_tpu_torch.host.utils.config import Config
@@ -1158,9 +1298,9 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
         str(dev), 'cpu', concurrent=True,
         ref_threads=ref_threads or CHILD_THREADS,
         encoder=encoder, cfg=cfg_id, num_envs=LOCKSTEP_ENVS,
-        rollout_len=TRAIN_LEN,
+        rollout_len=rollout_len,
         eval_envs=LOCKSTEP_EVAL_ENVS, iterations=LOCKSTEP_ITERATIONS,
-        encoder_specs=encoder_specs)
+        encoder_specs=encoder_specs, phase=phase)
     torch.cuda.synchronize(dev)
     counted = dict(segment_ops.launches)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -1171,10 +1311,10 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
         cfg = Config(cfg_id, 111, root_dir=root)
     layers = (cfg.state_encoder_specs['num_gcn_layers']
               if encoder == 'sgnn' else 0)
-    rows = LOCKSTEP_ENVS * TRAIN_LEN
+    rows = LOCKSTEP_ENVS * rollout_len
     mb_layers = cfg.num_optim_epoch * max(
         rows // cfg.mini_batch_size, 1) * layers
-    forward = {'segment_mean': TRAIN_LEN * layers,
+    forward = {'segment_mean': rollout_len * layers,
                'segment_mean_backward': 0}
     expect = {'collect': forward, 'update': {
         'segment_mean': mb_layers, 'segment_mean_backward': mb_layers},
@@ -1187,8 +1327,14 @@ def trainer_card_vs_cpu(dev, encoder, cfg_id='hlg', encoder_specs=None,
         raise AssertionError(f'lockstep launches {got}, last collect '
                              f'{report["last_collect_launches"]}, counted '
                              f'{counted} != {expect}, {total}')
-    return {'arm': encoder if cfg_id == 'hlg' else f'{cfg_id}_{encoder}',
-            'encoder': encoder, 'sizes': report['sizes'],
+    if phase == 2 and (report['phase'] != 2 or not report['warm_start']
+                       or report['warm_start'][0] != report['warm_start'][1]):
+        raise AssertionError(f'the road phase did not run warm-started: '
+                             f'{report["phase"]}, {report["warm_start"]}')
+    arm = encoder if cfg_id == 'hlg' else f'{cfg_id}_{encoder}'
+    return {'arm': arm if phase == 1 else f'{cfg_id}_phase2_{encoder}',
+            'encoder': encoder, 'phase': report['phase'],
+            'warm_start': report['warm_start'], 'sizes': report['sizes'],
             'widths': report['widths'],
             'plans': report['plans'],
             'per_iteration': [{k: it[k] for k in (
@@ -1215,6 +1361,11 @@ def trainer_card_vs_cpu_concept(dev):
 def trainer_card_vs_cpu_wide(dev):
     return trainer_card_vs_cpu(dev, 'sgnn', encoder_specs=WIDE_SPECS,
                                ref_threads=WIDE_REF_THREADS)
+
+
+def trainer_card_vs_cpu_phase2(dev):
+    return trainer_card_vs_cpu(dev, 'sgnn', 'grid', phase=2,
+                               rollout_len=TWO_PHASE_LEN)
 
 
 def ga_graph_vs_eager(dev):
@@ -1581,6 +1732,22 @@ def two_phase_grid(dev, layers, keep_dir):
                road_rewards=road, moved=moved,
                best_checkpoint=best_checkpoint, best_reward=best_reward)
     return rec
+
+
+def grid_phase1_setup():
+    """(spec, initial state on the CPU) of the grid's two-phase land-use
+    phase, as run_training builds them: cfg.train(), the BOUNDARY segments
+    kept, the trainer's default caps."""
+    from urban_tpu_torch.host.envs.plan_client import PlanClient
+    from urban_tpu_torch.host.utils.config import Config
+    from urban_tpu_torch.torchenv import state as tstate
+    with tempfile.TemporaryDirectory() as root:
+        cfg = Config('grid', 111, root_dir=root)
+    cfg.train()
+    plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
+    spec = tstate.build_env_spec(cfg, plc, max_steps=cfg.max_sequence_length,
+                                 keep_boundaries=True)
+    return spec, tstate.build_initial_state(spec, plc, device='cpu')
 
 
 def host_obs_tensors():
@@ -2210,13 +2377,17 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('trainer_card_vs_cpu_mlp', 'cuda'),
         ('trainer_card_vs_cpu_concept', 'cuda'),
         ('trainer_card_vs_cpu_wide', 'cuda'),
-        ('train_graph_vs_eager_wide', 'cuda'))
+        ('train_graph_vs_eager_wide', 'cuda'),
+        ('two_phase_train_export', 'cuda'),
+        ('trainer_card_vs_cpu_phase2', 'cuda'))
 # the TAIL phases that train: their launches go into the kernels' counts
 LOCKSTEP_TAIL = ('trainer_card_vs_cpu_sgnn', 'trainer_card_vs_cpu_mlp',
-                 'trainer_card_vs_cpu_concept')   # printed as one phase
+                 'trainer_card_vs_cpu_concept',
+                 'trainer_card_vs_cpu_phase2')   # printed as one phase
 TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
               'mlp_train_hlg', 'concept_train_export') + LOCKSTEP_TAIL + (
-              'trainer_card_vs_cpu_wide', 'train_graph_vs_eager_wide')
+              'trainer_card_vs_cpu_wide', 'train_graph_vs_eager_wide',
+              'two_phase_train_export')
 # a TAIL phase in a child process; prints run_phase's result as its last
 # line, one JSON object
 PHASE_CHILD = r"""
@@ -2569,6 +2740,7 @@ def smoke(t_start, children, keep_dir):
     cfg_g, spec_g, init_g_cpu = bench.setup('grid', {}, 'cpu')  # trainer caps
     _, spec_c, init_c = bench.setup('hlg_concept', {}, 'cpu')
     _, spec_h, init_h = bench.setup('huizhou', {}, 'cpu')   # trainer caps
+    spec_p1, init_p1 = grid_phase1_setup()
     real_obs = {
         'rollout': ('hlg_initial_observation', obs0),
         'trainer': ('hlg_initial_observation', obs_t),
@@ -2579,7 +2751,9 @@ def smoke(t_start, children, keep_dir):
         'host_obs': ('grid_host_env_initial_observation',
                      host_obs_tensors()),
         'huizhou_trainer': ('huizhou_initial_observation', make_batch_fns(
-            spec_h)[0](broadcast_state(init_h, 1)))}
+            spec_h)[0](broadcast_state(init_h, 1))),
+        'grid_phase1': ('grid_phase1_initial_observation', make_batch_fns(
+            spec_p1)[0](broadcast_state(init_p1, 1)))}
     fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
                                                real_obs, t0)
 
@@ -2745,6 +2919,10 @@ def smoke(t_start, children, keep_dir):
     # tail's sixteen children on the card
     children['train_graph_vs_eager_wide:cuda'] = start_child(
         'train_graph_vs_eager_wide', 'cuda')
+    # so the road phase's lockstep, whose CPU side steps 8 grid envs
+    # through 5 windows of 60 steps on 2 threads
+    children['trainer_card_vs_cpu_phase2:cuda'] = start_child(
+        'trainer_card_vs_cpu_phase2', 'cuda')
 
     # ---- 6. port GPU vs port CPU lockstep -------------------------------
     t0 = time.time()

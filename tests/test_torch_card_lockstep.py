@@ -3,7 +3,8 @@ with both sides on the CPU: the SGNN trainer on HLG at the trainer's caps,
 2 envs x 35 steps, one iteration (collect -> weights -> update -> eval) and
 one more collect, each side on the served noise. Two CPU sides agree bit
 for bit, on HLG and, through the tool's --cfg, on the planning-concept
-scenario hlg_concept (E = 4000 edges, the concept term in the reward);
+scenario hlg_concept (E = 4000 edges, the concept term in the reward),
+and in grid's road phase (phase 2: both sides frozen on one plan);
 the comparison reports a 1e-3 nudge of one edge_fc weight on one side, in
 that layer's group alone; a served-noise queue that runs out, or is left
 over, raises."""
@@ -148,3 +149,51 @@ def test_encoder_specs_reach_both_sides():
                              'max_num_edges': 40000})
     with pytest.raises(ValueError):
         cl.compare(a, narrow)
+
+
+def test_two_cpu_sides_agree_bit_for_bit_on_the_road_phase():
+    """The tool with phase 2 on grid, both sides on the CPU at once: each
+    freezes a phase-1 trainer on the one plan that frozen_plan makes (the
+    seed's greedy land-use episode; its road budget is 44 steps, so a
+    45-step window ends a road episode in each env) with the same warm
+    start, then one iteration and a collect of the road phase. The report
+    says the sides agree bit for bit, the warm start copied every tensor,
+    no road episode failed and the greedy road episode's reward is in
+    (0, 1]."""
+    report = cl.run('cpu', 'cpu', concurrent=True, ref_threads=1,
+                    cfg='grid', phase=2, num_envs=2, rollout_len=45,
+                    iterations=1)
+    assert report['ok'], report['failures']
+    assert report['phase'] == 2
+    assert report['sizes'] == dict(cfg='grid', num_envs=2, rollout_len=45,
+                                   eval_envs=2, nodes=1600, edges=3000,
+                                   iterations=1)
+    assert report['same_initial_parameters']
+    assert tuple(report['warm_start']) == (30, 30)
+    for c in report['collects']:
+        assert not c['differing_actions']
+        assert not any(v for k, v in c.items() if k.endswith('_abs_diff'))
+    (it,) = report['iterations']
+    assert it['adam_steps'] == 4 and it['episodes'] >= 2
+    assert it['failures'] == 0
+    assert not any(it['group_max_abs_diff'].values())
+    assert not any(it['loss_abs_diff'].values())
+    assert it['eval_reward'][0] == it['eval_reward'][1]
+    assert 0 < it['eval_reward'][0] <= 1
+
+
+def test_a_saved_side_runs_against_the_cpu_later(tmp_path):
+    """--save runs one side alone and pickles its record with its
+    arguments; --against runs the CPU side of it later (on another machine
+    where a run's CPU side outlasts the card's call) and compares: a
+    one-collect HLG run at one env, both sides on the CPU, bit for bit."""
+    path = str(tmp_path / 'side.pkl')
+    record = cl.main(['--device', 'cpu', '--num_envs', '1', '--iterations',
+                      '0', '--save', path])
+    assert record['sizes']['num_envs'] == 1 and not record['iterations']
+    report = cl.main(['--against', path, '--ref_threads', '1'])
+    assert report['ok'], report['failures']
+    assert report['devices'] == ['cpu', 'cpu'] and report['phase'] == 1
+    (c,) = report['collects']
+    assert not c['differing_actions']
+    assert not any(v for k, v in c.items() if k.endswith('_abs_diff'))

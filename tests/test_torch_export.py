@@ -16,11 +16,17 @@ tests/test_torch_scenarios.py's and tests/test_torch_concept.py's, and
 JAX's compile of another scenario's step would cost tier-1 ~45 s) and
 JAX's tool reads the same arrays as a JAX plan state. On hlg_concept the
 port's tool also prints the concept term, which JAX's host scorer gives
-for JAX's own GeoJSON (its tool does not print it)."""
+for JAX's own GeoJSON (its tool does not print it). On grid's road phase
+(--separate_train) the plan is a frozen land-use plan with the roads a
+road episode built: JAX's tool runs as a subprocess (JAX_PLATFORMS=cpu)
+on a pickle of the same arrays; the port's tool also prints the host's
+road term beside the checkpoint's jit road reward."""
 import importlib.util
 import json
 import os
 import pickle
+import re
+import subprocess
 import sys
 
 import jax
@@ -249,3 +255,79 @@ def test_phase1_resume_runs_the_next_iteration(checkpoints, tmp_path,
     assert out['iteration'] == 2
     assert (out['best_reward'], out['best_iteration']) == (3.25, 1)
     _assert_tensors_equal(out['best_plan_state'], plan)
+
+
+def road_phase_plan(root):
+    """A road-phase plan of grid, the port's env alone: the plan
+    card_lockstep.frozen_plan freezes (the seed's greedy land-use episode,
+    leftover feasible space small green), then a road episode of actions
+    drawn with default_rng(5) from the road mask to its end. Returns (the
+    final state's arrays, the episode's road reward)."""
+    from urban_tpu_torch.host.envs.plan_client import PlanClient
+    from urban_tpu_torch.tools import card_lockstep
+    table, _ = card_lockstep.frozen_plan('grid')
+    cfg = TConfig('grid', 111, root_dir=str(root))
+    cfg.finetune()
+    plc = PlanClient(cfg.objectives_plan, cfg.init_plan)
+    plc.freeze_land_use(table)
+    plc.unplan_all_land_use()
+    spec = tstate.build_env_spec(cfg, plc, max_steps=cfg.max_sequence_length)
+    state = broadcast_state(tstate.build_initial_state(spec, plc,
+                                                       device='cpu'), 1)
+    obs_fn, step_fn = make_batch_fns(spec)
+    rng = np.random.default_rng(5)
+    for _ in range(int(state.total_road_steps[0]) + 1):
+        action = np.zeros((1, 2), np.int32)
+        action[0, 1] = rng.choice(np.nonzero(obs_fn(state)[7][0].numpy())[0])
+        state, reward, done, info = step_fn(state, torch.as_tensor(action))
+        state, reward = apply_stage_rewards(spec, state, reward, info)
+        if bool(done[0]):
+            break
+    assert bool(info['rd_done'][0]) and not bool(info['failure'][0])
+    return tstate.plan_state_to_numpy(state.map(lambda x: x[0])), \
+        float(reward[0])
+
+
+def test_road_phase_export_matches_jax_tool(tmp_path, capsys):
+    plan, road = road_phase_plan(tmp_path / 'run')
+    assert 0 < road <= 1
+    common = {'best_reward': road, 'best_iteration': 212, 'iteration': 219,
+              'phase': 2}
+    j_ckpt, t_ckpt = str(tmp_path / 'tpu_best.p'), str(tmp_path / 'best.pt')
+    with open(j_ckpt, 'wb') as f:
+        pickle.dump(dict(common, best_plan_state=jstate.PlanState(**plan)),
+                    f)
+    torch.save(dict(common, best_plan_state=plan), t_ckpt)
+    j_out, t_out = str(tmp_path / 'jax.geojson'), str(tmp_path /
+                                                      'torch.geojson')
+    done = subprocess.run(
+        [sys.executable, os.path.join(REPO, 'tools', 'export_best_plan.py'),
+         '--cfg', 'grid', '--ckpt', j_ckpt, '--out', j_out],
+        env=dict(os.environ, JAX_PLATFORMS='cpu'), capture_output=True,
+        text=True, timeout=600)
+    assert done.returncode == 0, done.stderr
+    j_printed = done.stdout.splitlines()
+    assert export_best_plan.main(['--cfg', 'grid', '--ckpt', t_ckpt,
+                                  '--out', t_out]) == 0
+    t_printed = capsys.readouterr().out.splitlines()
+
+    with open(j_out) as f, open(t_out) as g:
+        assert json.load(g) == json.load(f)
+    # the frozen land use and the roads the episode built
+    table = load_geojson(t_out)
+    types = table.types[table.existence]
+    assert (types == city_config.ROAD).any()
+    assert not (types == city_config.FEASIBLE).any()
+    assert (types == city_config.GREEN_S).any()
+
+    want = (f'exported best plan (jit eval reward {road:.4f}, iteration '
+            f'212) -> ')
+    assert j_printed[0] == want + j_out and t_printed[0] == want + t_out
+    road_line = t_printed.pop()
+    assert t_printed[1:] == j_printed[1:]
+    # the host's road term (the channel JAX's tool prints) beside the jit
+    # road reward of the same plan
+    (host,) = [float(m) for line in j_printed for m in re.findall(
+        r"'road_network': ([-0-9.e]+)", line)]
+    assert road_line == f'road: {host} (jit {road})'
+    assert abs(host - road) < 1e-3

@@ -54,6 +54,7 @@ def test_huizhou_rehearsal_names_what_ran(rehearsal):
         'cfg': cfg, 'num_envs': 2, 'rollout_len': 8, 'eval_envs': 1,
         'seed': 111, 'encoder': encoder, 'encoder_operands': 'f32',
         'tau': 0.95, 'lr': 4e-4, 'normalize_advantages': True,
+        'separate_train': False, 'warm_start_phase2': True,
         'device': 'cpu'}
     assert summary['iterations'] == [0] and summary['card'] is None
 
@@ -154,3 +155,119 @@ def test_greedy_replay_takes_the_mlp(rehearsal, tmp_path):
         assert out['fail_step'] is None and 'replay' not in out
     with pytest.raises(RuntimeError):
         greedy_replay.greedy_replay('hlg', ckpt, device='cpu')
+
+
+# grid's two-phase curriculum at 2 envs x the phase's 60 steps, one eval
+# env, seed 0, whose greedy land-use eval succeeds at iteration 0 on the
+# CPU (so that the freeze has a plan)
+TWO_PHASE = ['--cfg', 'grid', '--separate_train', '--global_seed', '0',
+             '--num_envs', '2', '--eval_envs', '1', '--rollout_len', '60',
+             '--device', 'cpu']
+
+
+def _two_phase_chunk(root, stats, iterations, *flags):
+    return parity_run.main(['--iterations', str(iterations), '--root_dir',
+                            str(root), '--stats', str(stats), *flags,
+                            *TWO_PHASE])
+
+
+def _check_resumed_road_phase(models, resumed, entries, cut):
+    """The chunk resumed from a phase-2 final.pt of iteration `cut`: it
+    starts at cut + 1 on the checkpoint's parameters (the warm start's,
+    where the cut was at phase 2's first iteration), in phase 2, and its
+    summary carries phase 1's best and the warm start."""
+    assert resumed['iterations'][0] == cut + 1
+    assert resumed['phase'] == 2 and resumed['warm_start'] == [30, 30]
+    phase1 = read_checkpoint(os.path.join(models, 'phase1_final.pt'))
+    assert resumed['phase1'] == {'best_reward': phase1['best_reward'],
+                                 'best_iteration': phase1['best_iteration'],
+                                 'iteration': phase1['iteration']}
+    assert phase1['best_reward'] > 0 and phase1['phase'] == 1
+    iteration, params = entries[0]
+    assert iteration == cut + 1
+    return phase1, params
+
+
+def _entry_params(monkeypatch):
+    """Record (iteration, parameters) at each train_iteration's entry."""
+    seen = []
+    train_iteration = Trainer.train_iteration
+
+    def recorded(self, iteration, do_eval=True):
+        seen.append((iteration, {k: v.clone() for k, v in
+                                 self.model.state_dict().items()}))
+        return train_iteration(self, iteration, do_eval)
+    monkeypatch.setattr(Trainer, 'train_iteration', recorded)
+    return seen
+
+
+def test_two_phase_rehearsal_resumes_across_the_freeze(tmp_path,
+                                                       monkeypatch):
+    """--separate_train with --iterations 1 (a phase): the chunk runs phase
+    1's iteration 0, freezes its best plan with the warm start, and its
+    --deadline cuts it at phase 2's first iteration, which saves final.pt
+    in phase 2 with iteration 0 and the warm-started parameters (phase
+    1's best, every tensor copied). The next chunk resumes there: phase 2,
+    iteration 1, on those parameters; each line names its phase and the
+    road phase's line times its road reward."""
+    stats, root = tmp_path / 'stats.jsonl', tmp_path / 'run'
+    models = os.path.join(str(root), 'grid', '0', 'models')
+    first = _two_phase_chunk(root, stats, 1, '--deadline', '1e-3')
+    assert first['iterations'] == [0] and first['stopped_at_deadline']
+    assert first['phase'] == 2 and first['warm_start'] == [30, 30]
+    assert first['effective']['separate_train']
+    assert first['effective']['warm_start_phase2']
+    final = read_checkpoint(os.path.join(models, 'final.pt'))
+    assert final['phase'] == 2 and final['iteration'] == 0
+    assert final['frozen_table'] is not None
+    assert tuple(final['warm_start']) == (30, 30)
+
+    entries = _entry_params(monkeypatch)
+    second = _two_phase_chunk(root, stats, 1, '--resume',
+                              os.path.join(models, 'final.pt'))
+    assert second['iterations'] == [1] and not second['stopped_at_deadline']
+    phase1, params = _check_resumed_road_phase(models, second, entries, 0)
+    assert first['phase1'] == second['phase1']
+    for k, v in phase1['best_params'].items():
+        assert torch.equal(params[k], v), k
+        assert torch.equal(final['params'][k], v), k
+
+    lines = [json.loads(line) for line in stats.read_text().splitlines()]
+    assert [(x.get('iteration'), x.get('phase')) for x in lines] == [
+        (0, 1), (None, None), (1, 2), (None, None)]
+    road = lines[2]
+    assert 'road_reward_s' not in lines[0]
+    assert road['road_reward_calls']['collect'] >= 1
+    assert road['road_reward_calls']['eval'] >= 1
+    assert road['episodes'] >= 1
+
+
+@pytest.mark.slow
+def test_two_phase_deadline_in_phase_1_then_across_the_freeze(tmp_path,
+                                                              monkeypatch):
+    """--iterations 2 a phase in three chunks: the first cut by its
+    deadline in phase 1 (iteration 0 alone, final.pt in phase 1); the
+    second resumes it (iteration 1), freezes and is cut at phase 2's
+    first iteration; the third runs phase 2's iterations 2 and 3 on the
+    warm-started parameters. ~4 min on the CPU."""
+    stats, root = tmp_path / 'stats.jsonl', tmp_path / 'run'
+    models = os.path.join(str(root), 'grid', '0', 'models')
+    final = os.path.join(models, 'final.pt')
+    first = _two_phase_chunk(root, stats, 2, '--deadline', '1e-3')
+    assert first['iterations'] == [0] and first['phase'] == 1
+    assert first['phase1'] is None and first['warm_start'] is None
+    assert read_checkpoint(final)['phase'] == 1
+    second = _two_phase_chunk(root, stats, 2, '--deadline', '1e-3',
+                              '--resume', final)
+    assert second['iterations'] == [1] and second['phase'] == 2
+    assert read_checkpoint(final)['iteration'] == 1
+    entries = _entry_params(monkeypatch)
+    third = _two_phase_chunk(root, stats, 2, '--resume', final)
+    assert third['iterations'] == [2, 3]
+    phase1, params = _check_resumed_road_phase(models, third, entries, 1)
+    for k, v in phase1['best_params'].items():
+        assert torch.equal(params[k], v), k
+    lines = [json.loads(line) for line in stats.read_text().splitlines()]
+    assert [x.get('phase') for x in lines if 'iteration' in x] == \
+        [1, 1, 2, 2]
+    assert os.path.exists(os.path.join(models, 'phase2_final.pt'))

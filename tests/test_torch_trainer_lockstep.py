@@ -36,6 +36,8 @@ iteration statistics, the eval reward, best_reward and best_iteration
 equal. The JAX encoder runs its 'scatter' backend (f32, the port's
 semantics).
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -56,6 +58,7 @@ torch.set_num_threads(1)
 
 SEED = 111
 ENVS, STEPS, EVAL_ENVS = 2, 35, 2
+PHASE_STEPS = 60          # the two-phase curriculum's episode cap, a phase
 CAPS = {'hlg': (1344, 3000), 'hlg_concept': (1344, 4000)}   # (N, E)
 STEP_ATOL = 4e-5          # a parameter's bound, an Adam step
 RTOL, ATOL = 1e-5, 1e-4   # the env lockstep's float rule
@@ -193,7 +196,18 @@ def run_lockstep(iterations, do_eval, tmp_path, monkeypatch,
     if cfg == 'hlg_concept':
         assert len(tt.spec.concepts) == 3 and tt.spec.concept_weight == 3.0
     load_flax_params(tt.model, jax.tree.map(np.asarray, jt.params))
+    ended, crossed = lockstep_loop(jt, tt, iterations, do_eval, monkeypatch)
+    # the window ended episodes and carried unfinished ones across it
+    assert ended >= ENVS * (iterations + 1) and crossed > 0
+    assert jt.best_iteration >= 0 or not do_eval
 
+
+def lockstep_loop(jt, tt, iterations, do_eval, monkeypatch):
+    """JAX's trainer `jt` and the port's `tt`, from the same parameters,
+    through `iterations` train iterations and the collect after them, the
+    port on JAX's noise, compared after each part. Returns the episodes
+    that ended in the collects and those that crossed a window's end."""
+    steps = tt.rollout_len
     noise = ServedNoise()
     monkeypatch.setattr(policy, 'uniform', noise)
     monkeypatch.setattr(program, 'uniform', noise)
@@ -204,7 +218,7 @@ def run_lockstep(iterations, do_eval, tmp_path, monkeypatch,
     _recorded(tt, 'update', t_stats)
 
     def serve():
-        draws = jax_collect_noise(keys[-1], STEPS, ENVS, tt.spec.NE,
+        draws = jax_collect_noise(keys[-1], steps, tt.num_envs, tt.spec.NE,
                                   tt.spec.num_features)
         noise.queue = list(draws)
         return draws
@@ -257,7 +271,83 @@ def run_lockstep(iterations, do_eval, tmp_path, monkeypatch,
         np.testing.assert_allclose(tt.best_reward, jt.best_reward,
                                    rtol=RTOL, atol=ATOL, err_msg=where)
         assert tt.best_iteration == jt.best_iteration, where
+    return ended, crossed
 
-    # the window ended episodes and carried unfinished ones across it
-    assert ended >= ENVS * (iterations + 1) and crossed > 0
-    assert jt.best_iteration >= 0 or not do_eval
+
+def test_road_phase_trainer_matches_tpu_trainer(tmp_path, monkeypatch):
+    """Grid's road phase (--separate_train): JAX's and the port's phase-1
+    trainers (cfg.train(), BOUNDARY segments kept) from JAX's initial
+    draw; one land-use plan, the port's greedy episode of that draw (the
+    land-use lockstep to a frozen plan, and state_to_table's equality, are
+    tests/test_torch_two_phase.py's), made into each package's table from
+    the same arrays, its leftover feasible space small green; cfg.finetune()
+    and each package's freeze_land_use_trainer on it, warm-started from
+    the phase-1 parameters: the same spec, the same tensors copied (JAX's
+    transfer_matching_params' counts, the port's warm_start), the same
+    parameters after. Then one road-phase train_iteration of 2 envs x the
+    phase's 60 steps and the collect after it, on JAX's noise
+    (lockstep_loop): the road head's actions, the road rewards in the
+    update, Adam's step count. Road episodes end inside the window."""
+    from urban_tpu import city_config as jcc
+    from urban_tpu.jaxenv import state as jstate
+    from urban_tpu.rl import train_tpu
+    from urban_tpu_torch.host import city_config as tcc
+    from urban_tpu_torch.rl import trainer as ttrain
+    from urban_tpu_torch.torchenv import state as tstate
+    from urban_tpu_torch.torchenv import step as tstep
+
+    monkeypatch.setattr(jenc, 'SCATTER_MODE', 'scatter')
+    cj = _recipe(Config('grid', SEED, root_dir=str(tmp_path / 'jax')))
+    ct = _recipe(TorchConfig('grid', SEED, root_dir=str(tmp_path / 'torch')))
+    cj.train()
+    ct.train()
+    jt = TPUTrainer(cj, num_envs=ENVS, eval_envs=EVAL_ENVS,
+                    rollout_len=PHASE_STEPS, keep_boundaries=True)
+    tt = Trainer(ct, num_envs=ENVS, eval_envs=EVAL_ENVS,
+                 rollout_len=PHASE_STEPS, device='cpu', keep_boundaries=True)
+    assert (tt.spec.num_features, tt.spec.NE) == (1408, 3000)
+    phase1 = jax.tree.map(np.asarray, jt.params)
+    load_flax_params(tt.model, phase1)
+
+    tt.eval_agent(0)              # the port's greedy land-use episode
+    plan = tt.best_plan_state
+    assert plan is not None and int(plan['stage']) == 2
+    table_j = jstate.state_to_table(jstate.PlanState(**plan))
+    table_t = tstate.state_to_table(plan)
+    table_j.types[table_j.alive_mask_of(jcc.FEASIBLE)] = jcc.GREEN_S
+    table_t.types[table_t.alive_mask_of(tcc.FEASIBLE)] = tcc.GREEN_S
+    np.testing.assert_array_equal(table_t.types, table_j.types)
+
+    cj.finetune()
+    ct.finetune()
+    train_tpu.freeze_land_use_trainer(jt, table_j, warm_start_params=phase1)
+    ttrain.freeze_land_use_trainer(tt, table_t, warm_start_params={
+        k: v.clone() for k, v in tt.model.state_dict().items()})
+    assert (jt.phase, tt.phase) == (2, 2)
+    assert dataclasses.asdict(tt.spec) == dataclasses.asdict(jt.spec)
+    # the frozen plan regrows the slot table (1600-1664 nodes by the plan)
+    assert tt.spec.num_features > 1408 and tt.spec.NE == 3000
+    assert tt.spec.skip_land_use and not tt.spec.skip_road
+    _, copied, total = train_tpu.transfer_matching_params(
+        phase1, jax.tree.map(np.asarray, jt.params))
+    assert tt.warm_start == (copied, total) == (total, total)
+    a = _flat(to_flax_params(tt.model)['params'])
+    b = _flat(jax.tree.map(np.asarray, jt.params)['params'])
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    budget = int(tt.init_state.total_road_steps)
+    assert 0 < budget < PHASE_STEPS
+    assert int(tstep.road_mask(tt.spec, tt.init_state).sum()) > 0
+
+    rewards = []
+    _recorded(tt, 'collect', rewards)
+    ended, crossed = lockstep_loop(jt, tt, 1, False, monkeypatch)
+    # each env ended a road episode in each window, none failed, each
+    # with its road reward in (0, 1] (the grid's road weight is 1)
+    assert ended >= 2 * ENVS and crossed > 0
+    for traj in rewards:
+        done, fail = traj.dones.numpy(), traj.failures.numpy()
+        assert done.sum(0).min() >= 1 and not fail.any()
+        final = traj.rewards.numpy()[done]
+        assert ((final > 0) & (final <= 1)).all()

@@ -44,12 +44,15 @@ B = 256
 # trainer graph (4000 edge slots), the graph of the grid's two-phase
 # road phase (the frozen plan of chip_smoke.py's seed-0 run: 1600 slots),
 # the host environment's observation (grid.yaml's max_num_nodes and
-# max_num_edges, the agent's policy step and update) and the Huizhou
-# trainer's graph (1472 feature slots)
+# max_num_edges, the agent's policy step and update), the Huizhou
+# trainer's graph (1472 feature slots) and the graph of the grid's
+# two-phase land-use phase (cfg.train(), BOUNDARY segments kept: 1408
+# slots)
 SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('large_graph', 8192, 4096, 64), ('grid_trainer', 3000, 2688, 16),
           ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16),
-          ('host_obs', 3000, 1000, 16), ('huizhou_trainer', 3000, 1472, 16))
+          ('host_obs', 3000, 1000, 16), ('huizhou_trainer', 3000, 1472, 16),
+          ('grid_phase1', 3000, 1408, 16))
 # the batches a shape is timed at, where not only B: the failure replay
 # re-collects the HLG rollout at a quarter of the bench's batch; the HLG
 # and the Huizhou parity recipes evaluate 64 envs; the host agent's update
@@ -58,10 +61,12 @@ SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
 # the HLG trainer (its graph, not in SHAPES: chip_smoke.py checks it); the
 # Huizhou trainer updates on minibatches of B rows and collects with its
 # config's 192 envs, as the grid trainer collects; the concept recipe
-# collects and updates at B and evaluates 64 envs
+# collects and updates at B and evaluates 64 envs; each phase of the
+# grid's two-phase recipe updates at B, collects 192 envs and evaluates 64
 BATCHES = {'rollout': (B, B // 4), 'trainer': (B, 64), 'host_obs': (B, 1),
            'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192, 64),
            'grid_trainer': (B, 192), 'concept': (B, 64),
+           'grid_phase1': (B, 192, 64), 'grid_phase2': (B, 192, 64),
            'trainer_d24': (B, 64), 'trainer_d128': (B, 64),
            'trainer_d6': (B, 64),
            'trainer_e40k_d24': (B, 64, 8, 1), 'large_e100k': (8, 1),

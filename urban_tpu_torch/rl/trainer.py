@@ -215,6 +215,10 @@ class Trainer:
         self.phase = 1                    # 2 after freeze_land_use_trainer
         self.frozen_table = None          # the frozen land-use plan
         self.warm_start = None            # (copied, total) into phase 2
+        # the curriculum run_training drives (two phases, and whether the
+        # road phase starts from the phase-1 best parameters)
+        self.separate_train = False
+        self.warm_start_phase2 = True
         self.last_value_mc_rms = float('nan')
         self.last_minibatch_rows = []     # this rank's rows, each mb step
         self.last_actions = None          # the last collect's (T, B, 2)
@@ -502,7 +506,8 @@ class Trainer:
                   'best_params': self.best_params,
                   'best_iteration': self.best_iteration,
                   'phase': self.phase,
-                  'frozen_table': self.frozen_table}
+                  'frozen_table': self.frozen_table,
+                  'warm_start': self.warm_start}
         params = {k: v.detach().cpu() for k, v
                   in self.model.state_dict().items()}
         torch.save(dict(common, params=params,
@@ -533,6 +538,7 @@ class Trainer:
             self.drop_programs()
         replicate(self.mesh, self.model, self.optimizer)
         self.start_iteration = ckpt['iteration'] + 1
+        self.warm_start = ckpt.get('warm_start', self.warm_start)
         self.best_plan_state = ckpt.get('best_plan_state')
         self.best_params = ckpt.get('best_params')
         if restore_best_reward:
@@ -678,6 +684,8 @@ def _train(mesh: Mesh, cfg: Config, iterations: int, num_envs, separate_train,
                       eval_envs=eval_envs, use_tensorboard=use_tensorboard,
                       keep_boundaries=separate_train, encoder=encoder,
                       mesh=mesh, encoder_operands=encoder_operands)
+    trainer.separate_train = separate_train
+    trainer.warm_start_phase2 = warm_start_phase2
     if mesh.world_size > 1:
         trainer.logger.info(
             f'data parallel: {mesh.world_size} ranks, backend '

@@ -53,6 +53,14 @@ and the launch plans of the batches that ran.
         --concurrent
     python -m urban_tpu_torch.tools.card_lockstep --gcn_node_dim 24 \\
         --max_num_edges 40000 --concurrent
+    python -m urban_tpu_torch.tools.card_lockstep --cfg grid --phase 2 \\
+        --concurrent
+    python -m urban_tpu_torch.tools.card_lockstep --cfg grid --phase 2 \\
+        --num_envs 192 --iterations 1 --concurrent
+    python -m urban_tpu_torch.tools.card_lockstep --cfg grid --phase 2 \\
+        --num_envs 192 --iterations 1 --save side192.pkl
+    python -m urban_tpu_torch.tools.card_lockstep --against side192.pkl \\
+        --ref_threads 7 --out lockstep_192.json
     python -m urban_tpu_torch.tools.card_lockstep --device cpu \\
         --num_envs 2 --iterations 1
 
@@ -61,6 +69,23 @@ and the launch plans of the batches that ran.
 trainer's E), on both sides, as JAX's trainer takes the same overridden
 config: at width 24 and 40,000 edge slots HLG's graph takes the forward
 kernel's general plan and its runtime-width paths.
+
+``--phase 2`` holds the road phase of grid's two-phase curriculum
+(``--separate_train``): the frozen plan is made once, on the CPU, as
+``run_training`` makes it (``frozen_plan``: a phase-1 trainer at the
+seed, one greedy land-use episode of its initial draw, the leftover
+feasible space made small green), and the same table and the same
+warm-start parameters (that draw) go to both sides, each of which builds
+a phase-1 trainer, applies ``cfg.finetune()`` and freezes it on them
+(``freeze_land_use_trainer``: the road head, the road rewards in the
+update, the warm start). The window is then the phase's episode cap, 60
+steps, and each collect and eval takes the road head's (B, N) uniforms of
+the frozen plan's graph (N = 1600).
+
+``--save FILE`` runs only the side on ``--device`` and pickles its record
+with the frozen plan and its arguments; ``--against FILE`` later runs the
+CPU side of that record, on another machine if need be, and compares: a
+run whose CPU side outlasts a call on the card (192 envs: ~20 minutes).
 
 Without a card, ``--device cpu`` runs both sides on the CPU, which must
 agree bit for bit.
@@ -73,6 +98,7 @@ import gc
 import json
 import multiprocessing
 import os
+import pickle
 import tempfile
 import time
 from typing import Dict, List, Optional
@@ -80,14 +106,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from urban_tpu_torch.host import city_config
 from urban_tpu_torch.host.utils.config import Config
 from urban_tpu_torch.models import policy
 from urban_tpu_torch.ops import segment_ops
-from urban_tpu_torch.rl.trainer import Trainer
+from urban_tpu_torch.rl.trainer import Trainer, freeze_land_use_trainer
 from urban_tpu_torch.torchenv import program
 
 SEED, NOISE_SEED = 111, 0
 NUM_ENVS, ROLLOUT_LEN, EVAL_ENVS, ITERATIONS = 8, 35, 2, 2
+PHASE_LEN = 60            # the two-phase curriculum's episode cap, a phase
 STEP_ATOL = 4e-5          # a parameter's bound, an Adam step
 RTOL, ATOL = 1e-5, 1e-4   # the env lockstep's float rule
 LOSS_TOL = 1e-4           # the loss statistics, rtol and atol
@@ -112,6 +140,28 @@ def recipe_config(root_dir: str, cfg_id: str = 'hlg',
         cfg.state_encoder_specs = dict(cfg.state_encoder_specs,
                                        **encoder_specs)
     return cfg
+
+
+def frozen_plan(cfg_id: str = 'grid'):
+    """The plan a road phase is frozen on, made on the CPU as run_training
+    makes it: a phase-1 trainer (cfg.train(), BOUNDARY segments kept) at
+    SEED plays one greedy land-use episode of its initial draw; its plan,
+    with the leftover feasible space made small green. Returns (table,
+    the initial draw as numpy arrays: the warm start)."""
+    with tempfile.TemporaryDirectory() as root_dir:
+        cfg = recipe_config(root_dir, cfg_id)
+        cfg.train()
+        trainer = Trainer(cfg, num_envs=1, rollout_len=PHASE_LEN,
+                          eval_envs=1, device='cpu', keep_boundaries=True,
+                          eager=True)
+        trainer.eval_agent(0)
+        table = trainer.best_plan_table()
+    if table is None:
+        raise RuntimeError(f'{cfg_id}: the greedy land-use episode of the '
+                           f'initial draw at seed {SEED} failed')
+    table.types[table.alive_mask_of(city_config.FEASIBLE)] = \
+        city_config.GREEN_S
+    return table, {k: v.numpy() for k, v in trainer.best_params.items()}
 
 
 def parameter_group(name: str) -> str:
@@ -256,11 +306,14 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
              rollout_len: int = ROLLOUT_LEN, eval_envs: int = EVAL_ENVS,
              iterations: int = ITERATIONS,
              threads: Optional[int] = None,
-             encoder_specs: Optional[dict] = None) -> dict:
+             encoder_specs: Optional[dict] = None,
+             frozen: Optional[tuple] = None) -> dict:
     """One side of the lockstep: an eager trainer on scenario `cfg` (its
     state_encoder_specs updated with `encoder_specs`) on `device` through
     `iterations` train iterations and one more collect on the served
-    noise. Returns its record (numpy and plain values only): the initial
+    noise. With `frozen` (frozen_plan's (table, warm-start parameters))
+    the trainer is a phase-1 trainer frozen on them, in the road phase.
+    Returns its record (numpy and plain values only): the initial
     parameters, each collect's trajectory and decision gaps, and each
     iteration's statistics, parameters, Adam steps and launches."""
     if threads:
@@ -270,10 +323,18 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
         from urban_tpu_torch.bench import set_precision_flags
         set_precision_flags()
     with tempfile.TemporaryDirectory() as root_dir:
-        trainer = Trainer(recipe_config(root_dir, cfg, encoder_specs),
-                          num_envs=num_envs,
+        config = recipe_config(root_dir, cfg, encoder_specs)
+        if frozen is not None:
+            config.train()
+        trainer = Trainer(config, num_envs=num_envs,
                           rollout_len=rollout_len, eval_envs=eval_envs,
-                          device=dev, encoder=encoder, eager=True)
+                          device=dev, encoder=encoder, eager=True,
+                          keep_boundaries=frozen is not None)
+        if frozen is not None:
+            table, warm = frozen
+            config.finetune()
+            freeze_land_use_trainer(trainer, table.copy(), {
+                k: torch.as_tensor(v) for k, v in warm.items()})
         record = _run(trainer, iterations)
     if dev.type == 'cuda':
         # the card side's cached memory goes back to the card before the
@@ -290,6 +351,7 @@ def _run(trainer: Trainer, iterations: int) -> dict:
     rng = np.random.default_rng(NOISE_SEED)
     noise, recorder = ServedNoise(), GapRecorder(policy.gumbel_scores)
     record = {'device': str(trainer.device), 'encoder': trainer.encoder,
+              'phase': trainer.phase,
               'sizes': {'cfg': trainer.cfg.id, 'num_envs': B,
                         'rollout_len': T,
                         'eval_envs': trainer.eval_envs, 'nodes': N,
@@ -297,6 +359,7 @@ def _run(trainer: Trainer, iterations: int) -> dict:
               'widths': {'gcn_node_dim': trainer.cfg.state_encoder_specs[
                   'gcn_node_dim']},
               'init_params': _numpy_params(trainer.model),
+              'warm_start': trainer.warm_start,
               'plans': launch_plans(trainer),
               'collects': [], 'iterations': []}
     last = []   # the last collect's trajectory
@@ -362,13 +425,17 @@ def compare(card: dict, ref: dict) -> dict:
     compared."""
     failures = []
     if (card['sizes'] != ref['sizes'] or card['encoder'] != ref['encoder']
-            or card['widths'] != ref['widths']):
+            or card['widths'] != ref['widths']
+            or card['phase'] != ref['phase']):
         raise ValueError(f'records of other runs: {card["sizes"]} '
                          f'{card["widths"]} {ref["sizes"]} {ref["widths"]}')
     same_init = all(np.array_equal(card['init_params'][k], v)
                     for k, v in ref['init_params'].items())
     if not same_init:
         failures.append('the initial parameters differ')
+    if card['warm_start'] != ref['warm_start']:
+        failures.append(f'warm starts {card["warm_start"]} != '
+                        f'{ref["warm_start"]}')
     collects = []
     for c, (a, b) in enumerate(zip(card['collects'], ref['collects'])):
         where = f'collect {c}'
@@ -437,6 +504,7 @@ def compare(card: dict, ref: dict) -> dict:
             'last_collect_launches': card['last_collect_launches'],
             'plans': card['plans'], 'sizes': card['sizes'],
             'widths': card['widths'], 'encoder': card['encoder'],
+            'phase': card['phase'], 'warm_start': card['warm_start'],
             'devices': [card['device'], ref['device']],
             'seconds': {'device': card['seconds'],
                         'reference': ref['seconds']}}
@@ -444,11 +512,15 @@ def compare(card: dict, ref: dict) -> dict:
 
 def run_sides(device: str = 'cuda', ref_device: str = 'cpu',
               concurrent: bool = False, ref_threads: Optional[int] = None,
-              **kwargs):
+              phase: int = 1, **kwargs):
     """Both sides' records, (device, reference), each run_side(**kwargs).
     With `concurrent`, the reference side runs in a spawned process (with
     `ref_threads` intra-op threads) while this one runs the device side;
-    else the reference side first, here."""
+    else the reference side first, here. Phase 2: both sides frozen on one
+    frozen_plan, made here first, at the phase's window."""
+    if phase == 2:
+        kwargs = dict(kwargs, frozen=frozen_plan(kwargs.get('cfg', 'grid')))
+        kwargs.setdefault('rollout_len', PHASE_LEN)
     if not concurrent:
         ref = run_side(ref_device, threads=ref_threads, **kwargs)
         return run_side(device, **kwargs), ref
@@ -465,11 +537,42 @@ def run(device: str = 'cuda', ref_device: str = 'cpu', **kwargs) -> dict:
     return compare(*run_sides(device, ref_device, **kwargs))
 
 
+def save_side(path: str, device: str = 'cuda', phase: int = 1,
+              **kwargs) -> dict:
+    """The side on `device` alone (run_side(**kwargs); phase 2 on a
+    frozen_plan made here), pickled to `path` with the frozen plan and
+    its arguments, so that the reference side can run later or on
+    another machine (run_against). Returns the record."""
+    frozen = None
+    if phase == 2:
+        frozen = frozen_plan(kwargs.get('cfg', 'grid'))
+        kwargs.setdefault('rollout_len', PHASE_LEN)
+    record = run_side(device, frozen=frozen, **kwargs)
+    with open(path, 'wb') as f:
+        pickle.dump({'record': record, 'frozen': frozen, 'kwargs': kwargs},
+                    f)
+    return record
+
+
+def run_against(path: str, ref_device: str = 'cpu',
+                ref_threads: Optional[int] = None) -> dict:
+    """The reference side of a side this tool saved (save_side), with its
+    arguments and its frozen plan, then compare."""
+    with open(path, 'rb') as f:
+        saved = pickle.load(f)
+    ref = run_side(ref_device, threads=ref_threads, frozen=saved['frozen'],
+                   **saved['kwargs'])
+    return compare(saved['record'], ref)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--encoder', choices=('sgnn', 'mlp'), default='sgnn')
     ap.add_argument('--cfg', default='hlg',
                     help='The scenario (hlg, hlg_concept, ...).')
+    ap.add_argument('--phase', type=int, choices=(1, 2), default=1,
+                    help='2: the road phase of the two-phase curriculum '
+                    '(a road scenario: grid), frozen on frozen_plan.')
     ap.add_argument('--num_envs', type=int, default=NUM_ENVS)
     ap.add_argument('--iterations', type=int, default=ITERATIONS)
     ap.add_argument('--device', default='cuda',
@@ -485,14 +588,29 @@ def main(argv=None) -> dict:
                     help='The edge slots, the trainer\'s E (0: the '
                     'config\'s).')
     ap.add_argument('--out', default='', help='Write the report (JSON).')
+    ap.add_argument('--save', default='',
+                    help='Run only the side on --device and pickle it here '
+                    '(save_side); --against runs the CPU side later.')
+    ap.add_argument('--against', default='',
+                    help='Run the CPU side of a side saved with --save, on '
+                    'its arguments and frozen plan, and compare.')
     a = ap.parse_args(argv)
     t0 = time.perf_counter()
     specs = {k: v for k, v in (('gcn_node_dim', a.gcn_node_dim),
                                ('max_num_edges', a.max_num_edges)) if v}
-    report = run(a.device, concurrent=a.concurrent,
-                 ref_threads=a.ref_threads or None, encoder=a.encoder,
-                 cfg=a.cfg, num_envs=a.num_envs, iterations=a.iterations,
-                 encoder_specs=specs or None)
+    kwargs = dict(encoder=a.encoder, cfg=a.cfg, num_envs=a.num_envs,
+                  iterations=a.iterations, encoder_specs=specs or None)
+    if a.save:
+        record = save_side(a.save, a.device, phase=a.phase, **kwargs)
+        print(json.dumps({k: record[k] for k in (
+            'device', 'phase', 'sizes', 'plans', 'seconds')}), flush=True)
+        return record
+    if a.against:
+        report = run_against(a.against, ref_threads=a.ref_threads or None)
+    else:
+        report = run(a.device, concurrent=a.concurrent,
+                     ref_threads=a.ref_threads or None, phase=a.phase,
+                     **kwargs)
     report['wall_seconds'] = time.perf_counter() - t0
     for i, it in enumerate(report['iterations']):
         print(json.dumps({'iteration': i, **it}), flush=True)
@@ -501,8 +619,9 @@ def main(argv=None) -> dict:
         with open(a.out, 'w') as f:
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
-        'ok', 'failures', 'encoder', 'sizes', 'widths', 'devices', 'plans',
-        'last_collect_launches', 'seconds', 'wall_seconds')}), flush=True)
+        'ok', 'failures', 'encoder', 'phase', 'sizes', 'widths',
+        'warm_start', 'devices', 'plans', 'last_collect_launches',
+        'seconds', 'wall_seconds')}), flush=True)
     if not report['ok']:
         raise SystemExit(1)
     return report

@@ -13,7 +13,11 @@ scorer). The score of the filled plan is the number the JAX package's
 tool gives; ``demo`` on the same checkpoint scores the plan unfilled.
 Where the scenario weights a planning-concept term (hlg_concept,
 dhm_concept), a last line gives that term unweighted, ``concept: x``,
-which the score's channels do not list.
+which the score's channels do not list. A road-phase checkpoint of the
+two-phase curriculum (``phase`` 2: its plan is the frozen land use with
+the roads the greedy eval built) ends with ``road: x (jit y)``: the host's
+road-network term beside the checkpoint's best greedy eval, which in the
+road phase is the road reward alone, divided by its weight.
 
     python -m urban_tpu_torch.tools.export_best_plan --cfg hlg \\
         --ckpt DIR/hlg/111/models/best.pt --out results/hlg_rl_torch.geojson
@@ -68,9 +72,13 @@ def main(argv=None) -> int:
         tempfile.gettempdir(), 'urban_tpu_torch'))
     env = CityEnv(cfg)
     env.load_plan(table)
-    env.score_plan(verbose=True)
+    _, info = env.score_plan(verbose=True)
     if cfg.reward_specs.get('concept_weight', 0.0) > 0:
         print(f'concept: {concept_term(cfg, table)}')
+    if ckpt.get('phase', 1) == 2:
+        weight = cfg.reward_specs.get('road_network_weight', 1.0)
+        print(f"road: {info['road_network']} "
+              f"(jit {ckpt['best_reward'] / weight})")
     return 0
 
 
