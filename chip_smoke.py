@@ -98,7 +98,9 @@ phase trainer_card_vs_cpu_wide; the two trainers graph against eager
 at that config, bit for bit, started after the HLG rollout:
 train_graph_vs_eager_wide; the same lockstep in grid's road phase, both
 sides frozen on one plan with one warm start, 8 envs x 60 steps, started
-after the HLG rollout and printed in trainer_card_vs_cpu; and grid's
+after the HLG rollout and printed in trainer_card_vs_cpu; the same
+lockstep on DHM (N = 1408 nodes, land use only), 8 envs x 35 steps,
+started after the grid train iteration and printed there too; and grid's
 two-phase recipe through tools/parity_run.py --separate_train, 16 envs x
 60 steps, one iteration a phase, cut by its deadline at phase 2's first
 iteration and resumed across the freeze, exact launches in each part of
@@ -1368,6 +1370,10 @@ def trainer_card_vs_cpu_phase2(dev):
                                rollout_len=TWO_PHASE_LEN)
 
 
+def trainer_card_vs_cpu_dhm(dev):
+    return trainer_card_vs_cpu(dev, 'sgnn', 'dhm')
+
+
 def ga_graph_vs_eager(dev):
     """make_ga_population_fitness on HLG (GA_CMP_GENES genes, GA_STEPS
     steps) through its captured 'ga' step program against the same
@@ -2379,11 +2385,13 @@ TAIL = (('replay_phase', 'cuda'), ('road_checks', 'cuda'),
         ('trainer_card_vs_cpu_wide', 'cuda'),
         ('train_graph_vs_eager_wide', 'cuda'),
         ('two_phase_train_export', 'cuda'),
-        ('trainer_card_vs_cpu_phase2', 'cuda'))
+        ('trainer_card_vs_cpu_phase2', 'cuda'),
+        ('trainer_card_vs_cpu_dhm', 'cuda'))
 # the TAIL phases that train: their launches go into the kernels' counts
 LOCKSTEP_TAIL = ('trainer_card_vs_cpu_sgnn', 'trainer_card_vs_cpu_mlp',
                  'trainer_card_vs_cpu_concept',
-                 'trainer_card_vs_cpu_phase2')   # printed as one phase
+                 'trainer_card_vs_cpu_phase2',
+                 'trainer_card_vs_cpu_dhm')   # printed as one phase
 TRAIN_TAIL = ('train_resume_export_hlg', 'huizhou_train_export',
               'mlp_train_hlg', 'concept_train_export') + LOCKSTEP_TAIL + (
               'trainer_card_vs_cpu_wide', 'train_graph_vs_eager_wide',
@@ -2729,8 +2737,9 @@ def smoke(t_start, children, keep_dir):
     # ---- 3. the kernels against their plain versions --------------------
     # the forward and the backward at every shape of kb.SHAPES, on a random
     # bipartite graph (timed) and on a scenario's initial observation: HLG
-    # at the rollout's and the trainer's size, grid at its trainer's,
-    # hlg_concept at the concept trainer's and Huizhou at its trainer's
+    # at the rollout's and the trainer's size, grid at its trainer's and
+    # its land-use phase's, hlg_concept at the concept trainer's, Huizhou
+    # and DHM at their trainers'
     t0 = time.time()
     cfg, spec, init_cpu = bench.setup('hlg', bench.BENCH_CAPS, 'cpu')
     obs0 = make_batch_fns(spec)[0](broadcast_state(init_cpu, 1))
@@ -2756,6 +2765,17 @@ def smoke(t_start, children, keep_dir):
             spec_p1)[0](broadcast_state(init_p1, 1)))}
     fwd, bwd, fwd_err, bwd_err = check_kernels(kb, segment_ops, dev,
                                                real_obs, t0)
+    # DHM's trainer graph has grid_phase1's shape (3000, 1408, 16): its
+    # initial observation through both kernels at that shape's batches
+    # (the recipe's update and collect at 256, its eval at 64)
+    _, spec_d, init_d = bench.setup('dhm', {}, 'cpu')   # trainer caps
+    _, _, e_f, e_b = check_kernels(
+        kb, segment_ops, dev, {'grid_phase1': (
+            'dhm_initial_observation', make_batch_fns(spec_d)[0](
+                broadcast_state(init_d, 1)))}, t0,
+        shapes=[s for s in kb.SHAPES if s[0] == 'grid_phase1'],
+        random_graphs=False)
+    fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
 
     # ---- 3b. the kernels at the range shapes ---------------------------
     # the widths and graphs past the shipped scenarios (kb.RANGE_SHAPES:
@@ -3085,6 +3105,12 @@ def smoke(t_start, children, keep_dir):
         raise AssertionError(f'collect road reward vs cpu: {err}')
     phase('road_reward_card_vs_cpu', t0, collect_reward_max_abs_err=err,
           **road_end)
+
+    # the DHM arm of the card-vs-CPU trainer lockstep from here on (three
+    # cores: its card side, a CPU side of two threads), once the arms
+    # started after the HLG rollout have had the host for the train phases
+    children['trainer_card_vs_cpu_dhm:cuda'] = start_child(
+        'trainer_card_vs_cpu_dhm', 'cuda')
 
     # ---- 12. the grid's two-phase run_training -------------------------
     # the grid trainer's model and env batch go first, so that the peaks

@@ -3,17 +3,19 @@ with both sides on the CPU: the SGNN trainer on HLG at the trainer's caps,
 2 envs x 35 steps, one iteration (collect -> weights -> update -> eval) and
 one more collect, each side on the served noise. Two CPU sides agree bit
 for bit, on HLG and, through the tool's --cfg, on the planning-concept
-scenario hlg_concept (E = 4000 edges, the concept term in the reward),
-and in grid's road phase (phase 2: both sides frozen on one plan);
-the comparison reports a 1e-3 nudge of one edge_fc weight on one side, in
-that layer's group alone; a served-noise queue that runs out, or is left
-over, raises."""
+scenario hlg_concept (E = 4000 edges, the concept term in the reward), on
+DHM (N = 1408 nodes, land use only), and in grid's road phase (phase 2:
+both sides frozen on one plan); a side saved with --save runs against the
+CPU later from its own initial parameters; the comparison reports a 1e-3
+nudge of one edge_fc weight on one side, in that layer's group alone; a
+served-noise queue that runs out, or is left over, raises."""
 import json
 
 import numpy as np
 import pytest
 import torch
 
+from urban_tpu_torch.rl import trainer as trainer_mod
 from urban_tpu_torch.tools import card_lockstep as cl
 
 torch.set_num_threads(1)
@@ -59,18 +61,29 @@ def test_two_cpu_sides_agree_bit_for_bit(sides):
 
 
 def test_two_cpu_sides_agree_bit_for_bit_on_concept(tmp_path):
-    """The tool's command line with --cfg hlg_concept, both sides on the
-    CPU at once: the report it writes says the sides agree bit for bit."""
+    cli_sides_agree(tmp_path, 'hlg_concept', nodes=1344, edges=4000)
+
+
+@pytest.mark.parametrize('cfg,nodes,edges', [('dhm', 1408, 3000)],
+                         ids=['dhm'])
+def test_two_cpu_sides_agree_bit_for_bit_on_scenario(cfg, nodes, edges,
+                                                     tmp_path):
+    cli_sides_agree(tmp_path, cfg, nodes=nodes, edges=edges)
+
+
+def cli_sides_agree(tmp_path, cfg, nodes, edges):
+    """The tool's command line with --cfg `cfg`, both sides on the CPU at
+    once: the report it writes says the sides agree bit for bit."""
     out = tmp_path / 'report.json'
-    report = cl.main(['--cfg', 'hlg_concept', '--device', 'cpu',
+    report = cl.main(['--cfg', cfg, '--device', 'cpu',
                       '--num_envs', '2', '--iterations', '1',
                       '--concurrent', '--ref_threads', '1',
                       '--out', str(out)])
     assert report['ok'], report['failures']
     assert json.loads(out.read_text())['ok']
-    assert report['sizes'] == dict(cfg='hlg_concept', num_envs=2,
-                                   rollout_len=35, eval_envs=2, nodes=1344,
-                                   edges=4000, iterations=1)
+    assert report['sizes'] == dict(cfg=cfg, num_envs=2, rollout_len=35,
+                                   eval_envs=2, nodes=nodes, edges=edges,
+                                   iterations=1)
     assert report['same_initial_parameters']
     for c in report['collects']:
         assert not c['differing_actions']
@@ -194,6 +207,26 @@ def test_a_saved_side_runs_against_the_cpu_later(tmp_path):
     report = cl.main(['--against', path, '--ref_threads', '1'])
     assert report['ok'], report['failures']
     assert report['devices'] == ['cpu', 'cpu'] and report['phase'] == 1
+    (c,) = report['collects']
+    assert not c['differing_actions']
+    assert not any(v for k, v in c.items() if k.endswith('_abs_diff'))
+
+
+def test_against_starts_from_the_saved_initial_parameters(tmp_path,
+                                                         monkeypatch):
+    """--against runs its side from the saved side's initial parameters,
+    not from its own draw at the seed, which another torch version may
+    make otherwise (here: the reference side's draw at another seed); the
+    one-collect HLG run at one env still agrees bit for bit."""
+    path = str(tmp_path / 'side.pkl')
+    cl.main(['--device', 'cpu', '--num_envs', '1', '--iterations', '0',
+             '--save', path])
+    draw = trainer_mod.init_like_flax
+    monkeypatch.setattr(trainer_mod, 'init_like_flax', lambda model, _: draw(
+        model, torch.Generator().manual_seed(cl.SEED + 1)))
+    report = cl.main(['--against', path, '--ref_threads', '1'])
+    assert report['ok'], report['failures']
+    assert report['same_initial_parameters']
     (c,) = report['collects']
     assert not c['differing_actions']
     assert not any(v for k, v in c.items() if k.endswith('_abs_diff'))

@@ -49,7 +49,10 @@ def jax_demo_score(cfg_id, path, road_weight):
     pytest.param('hlg_concept', 0.0, 'hlg_concept_rl_tpu',
                  id='hlg_concept_rl_tpu'),
     pytest.param('hlg_concept', 0.0, 'hlg_concept_rl_torch',
-                 id='hlg_concept_rl_torch')])
+                 id='hlg_concept_rl_torch'),
+    # DHM (land use only): JAX's plan and the port's
+    pytest.param('dhm', 0.0, 'dhm_rl_tpu', id='dhm_rl_tpu'),
+    pytest.param('dhm', 0.0, 'dhm_rl_torch', id='dhm_rl_torch')])
 def test_score_matches_jax_demo(cfg_id, road_weight, plan):
     path = os.path.join(REPO, 'results', f'{plan}.geojson')
     want = jax_demo_score(cfg_id, path, road_weight)

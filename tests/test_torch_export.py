@@ -9,8 +9,9 @@ the plan state as a JAX trainer checkpoint (a pickle of
 ``plan_state_to_numpy``), and runs each package's tool on its own: the two
 GeoJSON files are equal as parsed JSON, types and coordinates exact, and
 the host scores they print (the reward and every channel) are the same
-text. On Huizhou, the scenario of JAX's round-5 record, and on the
-planning-concept scenario hlg_concept, the port's env takes the six
+text. On Huizhou, the scenario of JAX's round-5 record, on DHM (land use
+only, road weight 0) and on the planning-concept scenario hlg_concept,
+the port's env takes the six
 actions alone (their lockstep with JAX's env is
 tests/test_torch_scenarios.py's and tests/test_torch_concept.py's, and
 JAX's compile of another scenario's step would cost tier-1 ~45 s) and
@@ -82,7 +83,7 @@ def port_steps(spec, state, rng, steps):
 def checkpoints(tmp_path_factory):
     """cfg -> (JAX checkpoint path, port checkpoint path) of one env's plan
     of the scenario after six land-use actions (HLG: in lockstep with
-    JAX's env; Huizhou, hlg_concept: the port's env alone), made once a
+    JAX's env; Huizhou, DHM, hlg_concept: the port's env alone), made once a
     module."""
     made = {}
 
@@ -122,7 +123,7 @@ def jax_concept_term(cfg, path):
     return env._plc.get_concept_reward()[0]
 
 
-@pytest.mark.parametrize('cfg', ['hlg', 'huizhou', 'hlg_concept'])
+@pytest.mark.parametrize('cfg', ['hlg', 'huizhou', 'hlg_concept', 'dhm'])
 def test_export_matches_jax_tool(cfg, checkpoints, tmp_path, monkeypatch,
                                  capsys):
     j_ckpt, t_ckpt = checkpoints(cfg)

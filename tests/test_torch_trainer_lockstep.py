@@ -1,10 +1,11 @@
 """The port's PPO trainer loop against the JAX trainer's, across
 iterations: urban_tpu.rl.train_tpu.TPUTrainer and
 urban_tpu_torch.rl.trainer.Trainer side by side at the trainer's caps,
-on HLG (N = 1344 nodes, E = 3000 edges) and on the planning-concept
+on HLG (N = 1344 nodes, E = 3000 edges), on the planning-concept
 scenario hlg_concept (N = 1344, E = 4000; its concept term, weighted 3,
 enters the reward where an episode's land use ends, so the update learns
-from it), under the learning-parity recipe's flags (--normalize_advantages
+from it) and on DHM (N = 1408, E = 3000; land use only, road weight 0),
+under the learning-parity recipe's flags (--normalize_advantages
 --tau 0.95), from the same parameters (the JAX trainer's initial draw,
 converted).
 
@@ -59,7 +60,8 @@ torch.set_num_threads(1)
 SEED = 111
 ENVS, STEPS, EVAL_ENVS = 2, 35, 2
 PHASE_STEPS = 60          # the two-phase curriculum's episode cap, a phase
-CAPS = {'hlg': (1344, 3000), 'hlg_concept': (1344, 4000)}   # (N, E)
+CAPS = {'hlg': (1344, 3000), 'hlg_concept': (1344, 4000),
+        'dhm': (1408, 3000)}   # (N, E)
 STEP_ATOL = 4e-5          # a parameter's bound, an Adam step
 RTOL, ATOL = 1e-5, 1e-4   # the env lockstep's float rule
 
@@ -171,7 +173,9 @@ def _adam_count(opt_state):
     pytest.param('hlg', 2, True, marks=pytest.mark.slow, id='2-True'),
     pytest.param('hlg_concept', 1, False, id='hlg_concept-1-False'),
     pytest.param('hlg_concept', 2, True, marks=pytest.mark.slow,
-                 id='hlg_concept-2-True')])
+                 id='hlg_concept-2-True'),
+    pytest.param('dhm', 1, False, id='dhm-1-False'),
+    pytest.param('dhm', 2, True, marks=pytest.mark.slow, id='dhm-2-True')])
 def test_trainer_loop_matches_tpu_trainer_across_iterations(
         cfg, iterations, do_eval, tmp_path, monkeypatch):
     run_lockstep(iterations, do_eval, tmp_path, monkeypatch, cfg=cfg)

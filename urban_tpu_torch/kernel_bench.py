@@ -47,7 +47,7 @@ B = 256
 # max_num_edges, the agent's policy step and update), the Huizhou
 # trainer's graph (1472 feature slots) and the graph of the grid's
 # two-phase land-use phase (cfg.train(), BOUNDARY segments kept: 1408
-# slots)
+# slots), which is also the DHM trainer's (1408 feature slots)
 SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
           ('large_graph', 8192, 4096, 64), ('grid_trainer', 3000, 2688, 16),
           ('concept', 4000, 1344, 16), ('grid_phase2', 3000, 1600, 16),
@@ -63,6 +63,7 @@ SHAPES = (('rollout', 2304, 1088, 16), ('trainer', 3000, 1344, 16),
 # config's 192 envs, as the grid trainer collects; the concept recipe
 # collects and updates at B and evaluates 64 envs; each phase of the
 # grid's two-phase recipe updates at B, collects 192 envs and evaluates 64
+# (the DHM recipe at grid_phase1's shape: B and 64)
 BATCHES = {'rollout': (B, B // 4), 'trainer': (B, 64), 'host_obs': (B, 1),
            'dp_rank_update': (B // 2,), 'huizhou_trainer': (B, 192, 64),
            'grid_trainer': (B, 192), 'concept': (B, 64),
@@ -425,11 +426,20 @@ def _timed_plan(segment_ops, fn, plan, reps):
             'by_kernel': readings[-1]['by_kernel'] if device_ms else None}
 
 
+def plain_and_library_ms(segment_ops, h, edges, mask, n, reps=20):
+    """The forward's plain version and its library call (library_forward)
+    timed on the same inputs."""
+    lib, _ = library_forward(h, edges, mask, n)
+    return {'plain_ms': cuda_time_ms(
+        lambda: segment_ops.segment_mean_counts_ref(h, edges, mask, n),
+        reps), 'library_ms': cuda_time_ms(lib, reps)}
+
+
 def general_vs_chosen(segment_ops, rng, dev, reps=20,
                       shapes=('trainer', 'huizhou_trainer')):
     """The general plan forced at the HLG and the Huizhou trainer's graphs
     (B 256) beside the plan forward_plan chooses there: their times, the
-    bound, and the SHA-256 of each plan's mean and counts, which must be
+    bound, the plain version's and the library call's, and the SHA-256 of each plan's mean and counts, which must be
     equal (both add each node's rows in edge order and divide once)."""
     if getattr(segment_ops, 'general_plan', None) is None:
         return []
@@ -440,7 +450,8 @@ def general_vs_chosen(segment_ops, rng, dev, reps=20,
         h, edges, mask = h.to(dev), edges.to(dev), mask.to(dev)
         bnd = bound_ms(forward_bytes(edges, mask, n, d))
         row = {'shape': f'{shape}_general_vs_chosen', 'B': B, 'E': e,
-               'N': n, 'D': d, 'kernel': 'segment_mean', 'bound_ms': bnd}
+               'N': n, 'D': d, 'kernel': 'segment_mean', 'bound_ms': bnd,
+               **plain_and_library_ms(segment_ops, h, edges, mask, n, reps)}
         for name, plan in (('chosen', segment_ops.forward_plan(B, n, e, d)),
                            ('general', segment_ops.general_plan())):
             def fn(plan=plan):
@@ -462,8 +473,9 @@ def any_width_vs_templated(segment_ops, rng, dev, reps=20,
                            widths=(16, 32), batches=(B, 64)):
     """At the trainer's graph, for D 16 and 32 at B 256 and 64: the plan
     forward_plan chooses with D's own instantiation against the same plan
-    with the runtime-width one (any_width), their times and whether they
-    give the same bits."""
+    with the runtime-width one (any_width), their times beside the plain
+    version's and the library call's, and whether they give the same
+    bits."""
     if getattr(segment_ops, 'general_plan', None) is None:
         return []
     _, e, n, _ = SHAPES[1]
@@ -477,7 +489,9 @@ def any_width_vs_templated(segment_ops, rng, dev, reps=20,
             chosen = segment_ops.forward_plan(b, n, e, d)
             row = {'shape': 'trainer_any_width_vs_templated', 'B': b,
                    'E': e, 'N': n, 'D': d, 'kernel': 'segment_mean',
-                   'bound_ms': bound_ms(forward_bytes(edges, mask, n, d))}
+                   'bound_ms': bound_ms(forward_bytes(edges, mask, n, d)),
+                   **plain_and_library_ms(segment_ops, h, edges, mask, n,
+                                          reps)}
             outs = []
             for name, plan in (('templated', chosen),
                                ('any_width', chosen._replace(

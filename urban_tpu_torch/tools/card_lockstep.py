@@ -84,8 +84,10 @@ the frozen plan's graph (N = 1600).
 
 ``--save FILE`` runs only the side on ``--device`` and pickles its record
 with the frozen plan and its arguments; ``--against FILE`` later runs the
-CPU side of that record, on another machine if need be, and compares: a
-run whose CPU side outlasts a call on the card (192 envs: ~20 minutes).
+CPU side of that record, on another machine if need be, from the saved
+side's initial parameters (another torch version may draw other ones at
+the seed), and compares: a run whose CPU side outlasts a call on the card
+(192 envs: ~20 minutes).
 
 Without a card, ``--device cpu`` runs both sides on the CPU, which must
 agree bit for bit.
@@ -307,12 +309,15 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
              iterations: int = ITERATIONS,
              threads: Optional[int] = None,
              encoder_specs: Optional[dict] = None,
-             frozen: Optional[tuple] = None) -> dict:
+             frozen: Optional[tuple] = None,
+             init_params: Optional[Dict[str, np.ndarray]] = None) -> dict:
     """One side of the lockstep: an eager trainer on scenario `cfg` (its
     state_encoder_specs updated with `encoder_specs`) on `device` through
     `iterations` train iterations and one more collect on the served
     noise. With `frozen` (frozen_plan's (table, warm-start parameters))
     the trainer is a phase-1 trainer frozen on them, in the road phase.
+    With `init_params` (another side's record's) it starts from those
+    parameters, not its own.
     Returns its record (numpy and plain values only): the initial
     parameters, each collect's trajectory and decision gaps, and each
     iteration's statistics, parameters, Adam steps and launches."""
@@ -335,6 +340,9 @@ def run_side(device: str, encoder: str = 'sgnn', cfg: str = 'hlg',
             config.finetune()
             freeze_land_use_trainer(trainer, table.copy(), {
                 k: torch.as_tensor(v) for k, v in warm.items()})
+        if init_params is not None:
+            trainer.model.load_state_dict(
+                {k: torch.as_tensor(v) for k, v in init_params.items()})
         record = _run(trainer, iterations)
     if dev.type == 'cuda':
         # the card side's cached memory goes back to the card before the
@@ -557,10 +565,12 @@ def save_side(path: str, device: str = 'cuda', phase: int = 1,
 def run_against(path: str, ref_device: str = 'cpu',
                 ref_threads: Optional[int] = None) -> dict:
     """The reference side of a side this tool saved (save_side), with its
-    arguments and its frozen plan, then compare."""
+    arguments, its frozen plan and its initial parameters, then
+    compare."""
     with open(path, 'rb') as f:
         saved = pickle.load(f)
     ref = run_side(ref_device, threads=ref_threads, frozen=saved['frozen'],
+                   init_params=saved['record']['init_params'],
                    **saved['kwargs'])
     return compare(saved['record'], ref)
 
